@@ -56,7 +56,7 @@ def params_from_jax(tree: dict, cfg: GenieConfig) -> dict:
                                                         cfg.num_layers)}
     state = {}
     for path, value in _flatten(tree):
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.array(value, dtype=np.float32)
         *mods, leaf = path
         mods = [".".join(m.groups()) if (m := _INDEXED.match(p)) else p
                 for p in mods]

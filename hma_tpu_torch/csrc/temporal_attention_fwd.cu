@@ -10,8 +10,10 @@
 // one warp per (site, head), lanes over D (D / 32 values each). The warp
 // loads q, k, v of all T <= MAX_T frames into registers with coalesced
 // D-contiguous reads, then for each query frame t forms the t + 1 causal
-// scores with warp-shuffle sums, the fp32 softmax statistics, the probs
-// rounded to the compute dtype, and p v. Pairs s > t are never computed.
+// scores with warp-shuffle sums, the fp32 softmax statistics and probs, and
+// p v accumulated in fp32 from the upcast v; only out is rounded to the
+// compute dtype (as the TPU kernel does, temporal_attention.py:49-60). Pairs
+// s > t are never computed.
 //
 // C entry point: hma_temporal_attention_fwd, returns cudaGetLastError().
 
@@ -31,10 +33,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -93,7 +91,7 @@ temporal_attention_fwd_kernel(
     for (int e = 0; e < E; ++e) acc[e] = 0.f;
 #pragma unroll
     for (int s = 0; s <= t; ++s) {
-      const float p = round_to<T>(expf(sc[s] - m) / l);
+      const float p = expf(sc[s] - m) / l;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vr[s][e], acc[e]);
     }

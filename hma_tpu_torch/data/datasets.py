@@ -47,6 +47,7 @@ class RawTokenDataset:
         self.name = (name if name else self.metadata["name"]).replace("_noquant", "")
         if compute_stride_from_freq_table:
             self.stride = max(DATA_FREQ_TABLE.get(self.name, 1) // natural_hz, 1)
+        self.n_action = self.metadata.get("action_dim", 1) * self.stride
 
         if use_actions:
             actions = [np.memmap(f, dtype=np.float32, mode="r").reshape(len(self.data), -1)

@@ -4,12 +4,15 @@
 - `Dense` and `LayerNorm` reproduce flax's `nn.Dense` (fp32 params cast to
   the compute dtype at use) and `nn.LayerNorm` (fp32, E[x^2] - E[x]^2
   variance) so converted weights give the same numbers.
-- `SelfAttention.forward` sends the bidirectional (spatial) pass to K1'
-  (`ops.fused_attention`) and the causal (temporal) pass to K3'
-  (`ops.temporal_attention`). Both wrappers launch their CUDA kernel for a
-  CUDA tensor and use their plain version only for a CPU tensor.
+- `SelfAttention.forward` sends the bidirectional (spatial) pass to
+  `ops.fused_attention.FusedAttention` (K1' forward, K2' backward) and the
+  causal (temporal) pass to `ops.temporal_attention.FusedTemporalAttention`
+  (K3' forward, K4' backward). Each launches its CUDA kernels for a CUDA
+  tensor and uses their plain versions only for a CPU tensor; gradients
+  reach the fused qkv projection through the q/k/v views.
 - `SelfAttention.decode_step` is one timestep against a read-only temporal
-  KV cache; it is plain PyTorch, as its JAX counterpart is plain XLA.
+  KV cache; it is plain PyTorch, as its JAX counterpart is plain XLA, and
+  rounds its probs to the compute dtype as `_attend` does.
 
 `temporal_resident`, `decode_window` and `CrossAttention` are not ported yet.
 """
@@ -22,8 +25,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from hma_tpu_torch.ops.fused_attention import fused_attention, fused_attention_plain
-from hma_tpu_torch.ops.temporal_attention import fused_temporal_attention
+from hma_tpu_torch.ops.fused_attention import FusedAttention, fused_attention_plain
+from hma_tpu_torch.ops.temporal_attention import FusedTemporalAttention
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # decode_step's mask value
 
@@ -105,13 +108,13 @@ class SelfAttention(nn.Module):
         return q * self.scale, k, v
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        """Full pass over x: (B, N, C); causal runs K3', otherwise K1'."""
+        """Full pass over x: (B, N, C); causal runs K3'/K4', otherwise K1'/K2'."""
         B, N, C = x.shape
         q, k, v = self._qkv(x)
         if causal:
-            out, _ = fused_temporal_attention(q, k, v)
+            out = FusedTemporalAttention.apply(q, k, v)
         else:
-            out, _ = fused_attention(q, k, v)
+            out = FusedAttention.apply(q, k, v, False)
         return self.proj(out.reshape(B, N, C))
 
     def decode_step(self, x_t: torch.Tensor, k_cache: torch.Tensor,

@@ -31,6 +31,13 @@ def unfactorize_token_ids(factored: torch.Tensor, num_factored_vocabs: int = 2,
     return torch.sum(factored * powers, dim=-1)
 
 
+def factorize_labels(labels_THW: torch.Tensor, num_factored_vocabs: int = 2,
+                     factored_vocab_size: int = 512) -> torch.Tensor:
+    """(B, T, H, W) ids -> (B, num_factored_vocabs, T, H, W) factored ids."""
+    f = factorize_token_ids(labels_THW, num_factored_vocabs, factored_vocab_size)
+    return torch.movedim(f, -1, 1)
+
+
 class FactorizedEmbedding(nn.Module):
     """Sum of per-factor embeddings; masked positions (id == mask_token_id)
     take `mask_token_embed` through a select, so the gather is static-shape."""

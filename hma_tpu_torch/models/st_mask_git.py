@@ -1,10 +1,11 @@
 """STMaskGIT: discrete spatiotemporal masked-autoregressive video model
 (counterpart of hma_tpu/models/st_mask_git.py).
 
-Ported: `compute_logits` (full forward), `init_cache` and `frame_logits`
-(one frame against the temporal KV cache). The training loss, the pooled
-action readout (`jointly_predict_actions`) and `window_logits` are not
-ported yet.
+Ported: `compute_logits` (full forward), the training loss (`forward`,
+`compute_video_loss_and_acc`, `smoothed_ce_floor`), `init_cache` and
+`frame_logits` (one frame against the temporal KV cache). The pooled
+action readout and action loss (`jointly_predict_actions`) and
+`window_logits` are not ported yet.
 
 Parameters are fp32 and are cast to the compute `dtype` at use, as in the
 JAX model, so a converted `hma_tpu` tree (`convert.params_from_jax`) loads
@@ -16,8 +17,10 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from hma_tpu_torch.config import GenieConfig
 from hma_tpu_torch.models.action_stems import (
@@ -27,15 +30,33 @@ from hma_tpu_torch.models.action_stems import (
     normalize_actions,
 )
 from hma_tpu_torch.models.attention import Dense
-from hma_tpu_torch.models.factorization import FactorizedEmbedding
+from hma_tpu_torch.models.factorization import FactorizedEmbedding, factorize_labels
 from hma_tpu_torch.models.st_transformer import STTransformerDecoder
+
+LABEL_SMOOTHING = 0.01
+
+
+def smoothed_ce_floor(num_factored_vocabs: int, factored_vocab_size: int,
+                      smooth: float = LABEL_SMOOTHING) -> float:
+    """Analytic minimum of the label-smoothed factored CE: the entropy of
+    q = (1 - eps) onehot + eps / K, summed over the factors (~0.2363 for
+    the 2 x 512 card). A model at acc 1.0 never goes below it."""
+    eps, K = smooth, factored_vocab_size
+    q_correct = (1.0 - eps) + eps / K
+    q_other = eps / K
+    h = -(q_correct * np.log(q_correct) + (K - 1) * q_other * np.log(q_other))
+    return float(num_factored_vocabs * h)
 
 
 class STMaskGIT(nn.Module):
-    """Discrete masked-transformer world model."""
+    """Discrete masked-transformer world model.
+
+    `remat` checkpoints every STBlock in a forward that records gradients
+    (`STTransformerDecoder`; only the "full" `remat_policy`)."""
 
     def __init__(self, config: GenieConfig, dtype=torch.bfloat16, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         cfg = config
         if cfg.jointly_predict_actions:
@@ -50,7 +71,7 @@ class STMaskGIT(nn.Module):
             qkv_bias=cfg.qkv_bias, proj_bias=cfg.proj_bias, qk_norm=cfg.qk_norm,
             use_mup=cfg.use_mup, mlp_ratio=cfg.mlp_ratio, mlp_bias=cfg.mlp_bias,
             action_processing=cfg.action_network, num_domains=cfg.num_domains,
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, remat=remat, remat_policy=remat_policy)
         self.pos_embed_TSC = nn.Parameter(torch.zeros(
             1, cfg.T, cfg.S + cfg.action_token_size, cfg.d_model, device=device))
         self.token_embed = FactorizedEmbedding(
@@ -133,6 +154,45 @@ class STMaskGIT(nn.Module):
         x_TSC = self.decoder(x_TSC, action_emb, domain_id)
         logits = self.out_x_proj(x_TSC[:, :, :S] * self.readout_scale).float()
         return logits.reshape(B, T, h, w, -1).permute(0, 4, 1, 2, 3), None
+
+    def forward(self, input_ids: torch.Tensor, labels: torch.Tensor,
+                action_ids: Optional[torch.Tensor] = None, domain_id: int = 0):
+        """Masked-token factored cross-entropy and exact-token accuracy.
+
+        input_ids/labels: (B, T, S) int ids (mask_token_id where masked in
+        input_ids); the loss runs over the masked tokens of frames 1..T-1.
+        Returns {"loss", "acc"}, 0-d fp32 tensors.
+        """
+        B, T, S = input_ids.shape
+        h = w = math.isqrt(S)
+        logits_CTHW, _ = self.compute_logits(input_ids, action_ids, domain_id)
+        relevant = input_ids.reshape(B, T, h, w)[:, 1:] == self.mask_token_id
+        loss, acc = self.compute_video_loss_and_acc(
+            logits_CTHW, labels.reshape(B, T, h, w), relevant)
+        return {"loss": loss, "acc": acc}
+
+    def compute_video_loss_and_acc(self, logits_CTHW: torch.Tensor,
+                                   targets_THW: torch.Tensor,
+                                   relevant_mask_THW: torch.Tensor):
+        """Factored CE with label smoothing 0.01 and exact-token accuracy,
+        averaged over the relevant (masked) tokens of frames 1..; logits
+        (B, nv*fv, T, H, W), targets (B, T, H, W), mask (B, T-1, H, W)."""
+        cfg = self.config
+        fv, nv = cfg.factored_vocab_size, cfg.num_factored_vocabs
+        logits = logits_CTHW[:, :, 1:]
+        targets = targets_THW[:, 1:]
+        B, _, Tm1, H, W = logits.shape
+        fl = logits.reshape(B, nv, fv, Tm1, H, W)
+        ft = factorize_labels(targets.long(), nv, fv)  # (B, nv, T-1, H, W)
+        logp = F.log_softmax(fl.float(), dim=2)
+        onehot_ll = logp.gather(2, ft[:, :, None])[:, :, 0]
+        smooth = LABEL_SMOOTHING
+        ce = -(1 - smooth) * onehot_ll - (smooth / fv) * logp.sum(2)
+        loss_THW = ce.sum(1)  # over the factored vocabs
+        acc_THW = (fl.argmax(2) == ft).all(1)
+        m = relevant_mask_THW.float()
+        num = torch.clamp(m.sum(), min=1.0)
+        return (loss_THW * m).sum() / num, (acc_THW * m).sum() / num
 
     def init_cache(self, batch_size: int, with_actions: bool = True):
         """Zeroed temporal KV caches, (L, B*S_tot, T, H, Dh) each."""

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from hma_tpu_torch.models.action_stems import DomainModulate
 from hma_tpu_torch.models.attention import Dense, LayerNorm, SelfAttention
@@ -108,16 +109,34 @@ class STBlock(nn.Module):
 
 
 class STTransformerDecoder(nn.Module):
-    """Stack of STBlocks (loop layout: `layers.<i>`)."""
+    """Stack of STBlocks (loop layout: `layers.<i>`).
 
-    def __init__(self, num_layers: int, **block_kw):
+    With `remat`, each block of a forward that records gradients runs
+    under `torch.utils.checkpoint` (non-reentrant): only its input is kept
+    and the block is recomputed in the backward (JAX's `nn.remat` with no
+    saveable policy, "full"). The blocks draw no random numbers, so the
+    RNG state is not stashed.
+    """
+
+    def __init__(self, num_layers: int, remat: bool = False,
+                 remat_policy: str = "full", **block_kw):
         super().__init__()
+        if remat and remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r}: only 'full' is ported "
+                "(ROADMAP.md Queue A)")
+        self.remat = remat
         self.layers = nn.ModuleList(STBlock(**block_kw) for _ in range(num_layers))
 
     def forward(self, x_TSC: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
                 domain_id: int = 0) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x_TSC = layer(x_TSC, action_emb, domain_id)
+            if remat:
+                x_TSC = checkpoint(layer, x_TSC, action_emb, domain_id,
+                                   use_reentrant=False, preserve_rng_state=False)
+            else:
+                x_TSC = layer(x_TSC, action_emb, domain_id)
         return x_TSC
 
     def frame_step(self, x_SC: torch.Tensor, t: int, k_cache: torch.Tensor,

@@ -40,7 +40,7 @@ def env(tmp_path_factory):
     write_token_dataset(data, video, segs, actions,
                         {"name": "a", "vocab_size": card["image_vocab_size"]})
     jm, params, _, _, _ = build_pair()
-    save_checkpoint(str(root / "ckpt"),
+    save_checkpoint(str(root), "ckpt",
                     params_from_jax(params, GenieConfig(**card)), GenieConfig(**card))
     return root, data, jm, params
 
