@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all ten)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all thirteen)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
-  2. build: the five CUDA kernels from hma_tpu_torch/csrc with nvcc, one
+  2. build: the seven CUDA sources from hma_tpu_torch/csrc with nvcc, one
      process each, with the build time and what `-Xptxas -v` reports;
   3. kernels against their plain PyTorch versions at the main path's shapes
      and one ragged shape each, fp32 and bf16:
@@ -19,6 +19,11 @@ Phases, each failing the run on any error:
        strided dout. fp32: atol = rtol = BWD_FP32_TOL. bf16: BWD_BF16_TOL
        and the 1 % share; the negative control is the plain backward with
        the other kernel's rounding of p and ds (K2' rounds, K4' does not);
+     - K5' (the resident layout's entry) forward and backward at the d512
+       card's (B, T, S, H, D) = (8, 12, 128, 8, 64) and a ragged shape, on
+       views of one (B, T, S, 3, H, D) projection, with K3''s and K4''s
+       limits and controls, and bit for bit against K3'/K4' on the same
+       values regrouped to (B*S, T, H, D);
      - K6' (the fused denoise loop) against its plain version after all K
        steps, at the d512 card's shape (K 100, N 48, C 16, H 1024, depth 4),
        at the reference algorithm's (N 512: 11 tiles of rows), a ragged one
@@ -35,7 +40,8 @@ Phases, each failing the run on any error:
      then kernel, plain and library times with CUDA events (the library
      call is a yardstick the port never calls: SDPA's forward for K1'/K3',
      the backward alone of SDPA, on a retained graph, for K2'/K4'; no one
-     PyTorch call computes K6''s function);
+     PyTorch call computes K6''s function; SDPA's causal forward / backward
+     on the regrouped sites for K5');
   4. rollouts at full width: the d256 card (32 layers, d 256, T 12, S 256 +
      64 action tokens, 2 x 512 vocab) with the 40-domain synthetic action
      fields and random weights from seed 0. The cached per-frame forward is
@@ -80,7 +86,26 @@ Phases, each failing the run on any error:
      frame: 16 full forwards (K1' and K3' at B T = 96) and 16 sampler calls
      of N = 512 rows;
  10. entry point: `hma_tpu_torch.generate.main(["--use_feature", ...])` on a
-     synthetic latent dataset and a 2-layer d512 STMAR checkpoint.
+     synthetic latent dataset and a 2-layer d512 STMAR checkpoint;
+ 11. STMAR training at full width: the d512 card (mlp_drop 0.05 live) in
+     bf16 with remat and the domain-sliced AdamW (fp32 moments), B = 8 of
+     phase 9's latents and actions masked by the port's latent collator. In
+     each temporal layout, "transpose" then "resident" (the same model): one
+     warm-up step, then TRAIN_STEPS timed steps with the launch counts set to
+     0 just before and read just after (64/32 of K1'/K2' per step, and
+     64/32 of K3'/K4' or of K5' forward/backward), median step time, patch
+     and trunk tokens/s, peak memory, a profiler breakdown; finite loss and
+     grad norm, nothing skipped; the two medians' difference (reported, not
+     claimed). Then MAR_OVERFIT_STEPS steps on the fixed batch at lr 3e-4,
+     wd 0, with the diffusion timesteps, noise and dropout masks fixed: the
+     loss must fall by at least MAR_OVERFIT_MARGIN;
+ 12. STMAR gradient exactness: a 2-layer d512 card at B = 2 in fp32 with
+     every parameter perturbed, in both layouts, the draws and dropout masks
+     handed in: loss to 1e-5 relative and every gradient to GRAD_TOL, the
+     kernels on the card against the plain versions on the CPU;
+ 13. entry point: `hma_tpu_torch.train_multi.main(["--model_type",
+     "continuous", ...])` for a few steps of a 2-layer d512 STMAR card on a
+     synthetic latent dataset, then phase 10's generate from its checkpoint.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -155,6 +180,11 @@ K6_STEP_MARGIN = {"first block": 10.0, "all blocks": 3.0}
 # planted fault reads (1.6e-2).
 MAR_EXACT_TOL = 5e-5
 MAR_REPEATS = 2  # timed full rollouts of the d512 card after one warm-up
+MAR_OVERFIT_STEPS = 30
+# The d512 STMAR loss must fall by at least this much over MAR_OVERFIT_STEPS
+# with its draws fixed: half of the fall an H100 (700 W) reads (0.7030 ->
+# 0.4973, from the weights phase 11's timed steps leave).
+MAR_OVERFIT_MARGIN = 0.1
 
 
 def require(cond: bool, what: str) -> None:
@@ -379,8 +409,10 @@ def kernel_phase():
         record(name, shape, errs, ms, plain_ms, library_ms, n_bytes, n_ops)
 
     # backward kernels, from the forward kernel's out and lse
-    bwd_cases = [("K2'", (96, 320, 8, 32), False, True), ("K2'", (3, 77, 4, 64), True, False),
-                 ("K4'", (2560, 12, 8, 32), True, True), ("K4'", (1000, 5, 3, 64), True, False)]
+    bwd_cases = [("K2'", (96, 320, 8, 32), False, True), ("K2'", (96, 128, 8, 64), False, True),
+                 ("K2'", (3, 77, 4, 64), True, False),
+                 ("K4'", (2560, 12, 8, 32), True, True), ("K4'", (1024, 12, 8, 64), True, True),
+                 ("K4'", (1000, 5, 3, 64), True, False)]
     for name, shape, causal, main in bwd_cases:
         lead, H, D = shape[:2], shape[2], shape[3]
         if name == "K2'":
@@ -420,7 +452,132 @@ def kernel_phase():
         pairs = keys * (keys + 1) // 2 if causal else keys * keys
         n_ops = 10 * (n_rows // keys) * pairs * D  # 5 products, 2 ops per MAC
         record(name, shape, errs, ms, plain_ms, library_ms, n_bytes, n_ops)
-    return records + denoise_kernel_phase()
+    return records + resident_kernel_phase() + denoise_kernel_phase()
+
+
+def resident_qkv(shape, dtype, seed):
+    """K5''s inputs as `FusedTemporalResident` hands them over: k and v
+    views of one (B, T, S, 3, H, D) projection, q its slot scaled (a new
+    tensor)."""
+    import torch
+
+    B, T, S, H, D = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    qkv = torch.randn(B, T, S, 3, H, D, generator=g, device="cuda").to(dtype)
+    return qkv[..., 0, :, :] * D**-0.5, qkv[..., 1, :, :], qkv[..., 2, :, :]
+
+
+def to_sites(x):
+    """(B, T, S, H, D) -> (B*S, T, H, D), the layout K3'/K4' read."""
+    B, T, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * S, T, H, D)
+
+
+def from_sites(x, B, S):
+    """(B*S, T, ...) -> (B, T, S, ...) contiguous."""
+    return x.reshape(B, S, *x.shape[1:]).transpose(1, 2).contiguous()
+
+
+def resident_kernel_phase():
+    """Phase 3, K5': the resident layout's forward and backward against the
+    plain version (fp32, bf16 with a negative control), and bit for bit
+    against K3'/K4' on the same values regrouped; times at the d512 card's
+    training shape, with SDPA's causal forward / backward as the library."""
+    import torch
+    from torch.nn import functional as F
+
+    from hma_tpu_torch.ops.fused_attention import attention_bwd_plain, fused_attention_plain
+    from hma_tpu_torch.ops.temporal_attention import (
+        fused_temporal_attention, fused_temporal_attention_bwd,
+        fused_temporal_attention_resident, fused_temporal_attention_resident_bwd,
+        temporal_resident_bwd_plain, temporal_resident_plain)
+
+    def rounded_probs(q, k, v):  # the forward's control: probs rounded as K1 does
+        out = fused_attention_plain(to_sites(q), to_sites(k), to_sites(v), True)[0]
+        return from_sites(out, q.shape[0], q.shape[2])
+
+    def slots(dqkv):
+        return tuple(g.contiguous() for g in dqkv.unbind(3))
+
+    def bwd_kernel(*a):
+        return slots(fused_temporal_attention_resident_bwd(*a))
+
+    def bwd_plain(*a):
+        return slots(temporal_resident_bwd_plain(*a))
+
+    def bwd_control(q, k, v, out, lse, dout):  # p and ds rounded, as K2 does
+        B, S = q.shape[0], q.shape[2]
+        grads = attention_bwd_plain(*(to_sites(x) for x in (q, k, v, out)), lse,
+                                    to_sites(dout), True, True)
+        return tuple(from_sites(g, B, S) for g in grads)
+
+    records = []
+    for shape, main in (((8, 12, 128, 8, 64), True), ((3, 5, 7, 3, 32), False)):
+        B, T, S, H, D = shape
+        errs, bwd_errs = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            fwd_tol = FP32_TOL if dtype == torch.float32 else BF16_TOL["K3'"]
+            bwd_tol = BWD_FP32_TOL if dtype == torch.float32 else BWD_BF16_TOL["K4'"]
+            q, k, v = resident_qkv(shape, dtype, seed=30)
+            label = f"K5' {shape} {dtype}"
+            errs[dtype] = check_kernel(fused_temporal_attention_resident,
+                                       temporal_resident_plain, rounded_probs,
+                                       (q, k, v), fwd_tol, label + " fwd")
+            out, lse = fused_temporal_attention_resident(q, k, v)
+            dout = strided_dout((B, T, S), H, D, dtype, seed=31)
+            bwd_errs[dtype] = check_bwd(bwd_kernel, bwd_plain, bwd_control,
+                                        (q, k, v, out, lse, dout), bwd_tol, label + " bwd")
+            # the same values regrouped through K3' and K4': bit for bit
+            out3, lse3 = fused_temporal_attention(to_sites(q), to_sites(k), to_sites(v))
+            grads3 = fused_temporal_attention_bwd(to_sites(q), to_sites(k), to_sites(v),
+                                                  out3, lse3, to_sites(dout))
+            dqkv = fused_temporal_attention_resident_bwd(q, k, v, out, lse, dout)
+            torch.cuda.synchronize()
+            same = (torch.equal(to_sites(out), out3) and torch.equal(lse, lse3)
+                    and all(torch.equal(to_sites(g), g3)
+                            for g, g3 in zip(dqkv.unbind(3), grads3)))
+            print(f"  {label}: out, lse, dq, dk, dv equal K3'/K4''s on the regrouped "
+                  f"values bit for bit: {same}", flush=True)
+            require(same, f"{label}: K5' differs from K3'/K4' on the same values")
+        if not main:
+            continue
+        q, k, v = resident_qkv(shape, torch.bfloat16, seed=1)
+        out, lse = fused_temporal_attention_resident(q, k, v)
+        dout = strided_dout((B, T, S), H, D, torch.bfloat16, seed=2)
+        n_rows, pairs = B * S * H * T, T * (T + 1) // 2
+        numel = math.prod(shape)
+        qt, kt, vt = (to_sites(x).detach().transpose(1, 2).requires_grad_(True)
+                      for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0)
+        go = to_sites(dout).transpose(1, 2)
+        timings = {
+            "K5' fwd": (lambda: fused_temporal_attention_resident(q, k, v),
+                        lambda: temporal_resident_plain(q, k, v),
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               scale=1.0),
+                        4 * numel * 2 + n_rows * 4, 4 * (n_rows // T) * pairs * D, errs,
+                        "hma_tpu/ops/temporal_attention.py:273"),
+            "K5' bwd": (lambda: fused_temporal_attention_resident_bwd(q, k, v, out, lse, dout),
+                        lambda: temporal_resident_bwd_plain(q, k, v, out, lse, dout),
+                        lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True),
+                        8 * numel * 2 + n_rows * 4, 10 * (n_rows // T) * pairs * D,
+                        bwd_errs, "hma_tpu/ops/temporal_attention.py:278")}
+        for name, (kern, plain, lib, n_bytes, n_ops, e, where) in timings.items():
+            ms, plain_ms, library_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+            bound_ms, bound_by = bound(n_bytes, n_ops)
+            src = "temporal_resident_fwd" if name.endswith("fwd") else "temporal_resident_bwd"
+            records.append({
+                "name": name, "shape": list(shape), "dtype": "bf16", "route": "cuda",
+                "source": f"hma_tpu_torch/csrc/{src}.cu", "replaces": where,
+                "launches": None, "max_abs_err": e[torch.bfloat16],
+                "max_err": e[torch.bfloat16], "max_abs_err_fp32": e[torch.float32],
+                "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms})
+            print(f"  {name} {shape} bf16: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"library {library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
+                  flush=True)
+        del o
+    return records
 
 
 def denoise_inputs(K, N, C, H, depth, seed):
@@ -742,14 +899,15 @@ def main_path_phase(records):
           flush=True)
 
 
-def set_launches(records, counts):
-    """Write main-path launch counts into the records of {(name, shape): n};
-    each must have a record."""
+def set_launches(records, counts, add=False):
+    """Write main-path launch counts into the records of {(name, shape): n},
+    or add them to what a path before wrote (`add`, where two main paths run
+    a kernel at one shape); each must have a record."""
     for (name, shape), n in counts.items():
         hit = [r for r in records if r["name"] == name and tuple(r["shape"]) == shape]
         if records:  # empty when phase 3 was not asked for
             require(len(hit) == 1, f"no kernel record for {name} {shape}")
-            hit[0]["launches"] = n
+            hit[0]["launches"] = n + ((hit[0]["launches"] or 0) if add else 0)
 
 
 def mar_data(cfg, B):
@@ -894,33 +1052,45 @@ def feature_entry_phase():
     STMAR checkpoint and a synthetic latent dataset."""
     import torch
 
-    from hma_tpu_torch.data.datasets import write_token_dataset
-    from hma_tpu_torch.generate import main as generate_main
     from hma_tpu_torch.models.st_mar import STMAR
     from hma_tpu_torch.utils.checkpoint import save_checkpoint
 
     cfg = mar_flagship_config(40)
     cfg.num_layers = 2
     model = STMAR(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
-    rng = np.random.default_rng(5)
-    n, side, C = 40, cfg.h, cfg.vae_embed_dim
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        write_token_dataset(
-            tmp / "data", rng.normal(size=(n, C, side, side)).astype(np.float16),
-            np.repeat(np.arange(n // 20), 20),
-            rng.normal(size=(n, cfg.d_actions[0])).astype(np.float32),
-            {"name": "domain_0", "latent_channels": C})
+        write_latent_dataset(tmp / "data", cfg, seed=5)
         save_checkpoint(str(tmp), "ckpt", model.state_dict(), cfg)
-        reset_counts()
-        generate_main(["--checkpoint_dir", str(tmp / "ckpt"), "--val_data_dir",
-                       str(tmp / "data"), "--output_dir", str(tmp / "out"),
-                       "--batch_size", "2", "--num_prompt_frames", "2", "--use_feature",
-                       "--device", "cuda"])
-        counts = read_counts()
-        meta = json.loads((tmp / "out" / "metadata.json").read_text())
-        video = np.fromfile(tmp / "out" / "video.bin", dtype=np.float16)
-    T = cfg.T
+        check_generate_feature(tmp / "ckpt", tmp / "data", tmp / "out", cfg)
+
+
+def write_latent_dataset(path, cfg, seed):
+    """A synthetic 40-frame float16 latent dataset for domain_0 of `cfg`."""
+    from hma_tpu_torch.data.datasets import write_token_dataset
+
+    rng = np.random.default_rng(seed)
+    n, side, C = 40, cfg.h, cfg.vae_embed_dim
+    write_token_dataset(
+        path, rng.normal(size=(n, C, side, side)).astype(np.float16),
+        np.repeat(np.arange(n // 20), 20),
+        rng.normal(size=(n, cfg.d_actions[0])).astype(np.float32),
+        {"name": "domain_0", "latent_channels": C})
+
+
+def check_generate_feature(ckpt_dir, data_dir, out_dir, cfg):
+    """`hma_tpu_torch.generate.main(["--use_feature", ...])` on the card from
+    a 2-layer STMAR checkpoint; checks what it wrote and its launches."""
+    from hma_tpu_torch.generate import main as generate_main
+
+    reset_counts()
+    generate_main(["--checkpoint_dir", str(ckpt_dir), "--val_data_dir", str(data_dir),
+                   "--output_dir", str(out_dir), "--batch_size", "2",
+                   "--num_prompt_frames", "2", "--use_feature", "--device", "cuda"])
+    counts = read_counts()
+    meta = json.loads((Path(out_dir) / "metadata.json").read_text())
+    video = np.fromfile(Path(out_dir) / "video.bin", dtype=np.float16)
+    T, side, C = cfg.T, cfg.h, cfg.vae_embed_dim
     require(meta["num_images"] == 2 * (2 * T - 2) and meta["token_dtype"] == "float16"
             and meta["latent_channels"] == C and meta["h"] == side
             and meta["generation_layout"] == "prompt,pred,gt", f"metadata {meta}")
@@ -929,8 +1099,9 @@ def feature_entry_phase():
     steps = (T - 2) * cfg.maskgit_steps
     require(counts["K6'"] == steps and counts["K1'"] == (2 + (T - 2) + steps) * 2,
             f"generate --use_feature launches {counts}")
-    print(f"  generate --use_feature: {meta['num_images']} float16 latent frames of "
-          f"({C}, {side}, {side}) written; launches {counts}", flush=True)
+    print(f"  generate --use_feature from {Path(ckpt_dir).name}: {meta['num_images']} "
+          f"float16 latent frames of ({C}, {side}, {side}) written; launches {counts}",
+          flush=True)
 
 
 def write_dataset(path, cfg, seed):
@@ -988,14 +1159,29 @@ def kernel_counters():
     from hma_tpu_torch.ops.diffusion_sampler import fused_denoise_loop
     from hma_tpu_torch.ops.fused_attention import fused_attention, fused_attention_bwd
     from hma_tpu_torch.ops.temporal_attention import (
-        fused_temporal_attention, fused_temporal_attention_bwd)
+        fused_temporal_attention, fused_temporal_attention_bwd,
+        fused_temporal_attention_resident, fused_temporal_attention_resident_bwd)
 
     return {"K1'": fused_attention, "K2'": fused_attention_bwd,
             "K3'": fused_temporal_attention, "K4'": fused_temporal_attention_bwd,
+            "K5' fwd": fused_temporal_attention_resident,
+            "K5' bwd": fused_temporal_attention_resident_bwd,
             "K6'": fused_denoise_loop}
 
 
 TRAINING_KERNELS = ("K1'", "K2'", "K3'", "K4'")  # the training path runs no K6'
+
+
+def train_launches(layers, layout):
+    """Launches per training step with remat (each forward runs twice):
+    the temporal pass through K3'/K4' ("transpose") or K5' ("resident")."""
+    want = {name: 0 for name in kernel_counters()}
+    want.update({"K1'": 2 * layers, "K2'": layers})
+    if layout == "transpose":
+        want.update({"K3'": 2 * layers, "K4'": layers})
+    else:
+        want.update({"K5' fwd": 2 * layers, "K5' bwd": layers})
+    return want
 
 
 def reset_counts():
@@ -1067,12 +1253,11 @@ def training_phase(records):
           f"loss {metrics[0]['loss'].item():.4f} -> {metrics[-1]['loss'].item():.4f}, "
           f"grad norm {metrics[-1]['grad_norm'].item():.4f}, skipped 0; launches "
           f"per step {per_step}; peak memory {peak / 2**30:.2f} GiB", flush=True)
-    layers = cfg.num_layers
-    want = {"K1'": 2 * layers, "K2'": layers, "K3'": 2 * layers, "K4'": layers, "K6'": 0}
+    want = train_launches(cfg.num_layers, "transpose")
     require(per_step == want, f"launches per step {per_step}, want {want}")
+    set_launches(records, {("K2'", (B * cfg.T, 320, 8, 32)): counts["K2'"],
+                           ("K4'", (B * 320, cfg.T, 8, 32)): counts["K4'"]})
     for r in records:
-        if r["name"] in ("K2'", "K4'"):
-            r["launches"] = counts[r["name"]]
         if tuple(r["shape"][1:]) in ((320, 8, 32), (12, 8, 32)):  # the d256 card's
             r["train_launches_per_step"] = per_step[r["name"]]
     profile_run("training step", lambda: step(batch), med)
@@ -1176,13 +1361,244 @@ def train_entry_phase():
         check_generate(tmp / "run", data, tmp / "gen", cfg.T, cfg.S, cfg.image_vocab_size)
 
 
+def mar_batch(cfg, B, device):
+    """The d512 card's training batch: `mar_data`'s latents and actions,
+    masked by the port's latent collator (its RNG from seed 0), domain 0."""
+    import torch
+
+    from hma_tpu_torch.data.collators import maskgit_collate_feature
+
+    lat, actions = (x.cpu() for x in mar_data(cfg, B))
+    h, C = cfg.h, cfg.vae_embed_dim
+    items = [{"input_ids": lat[b].reshape(cfg.T * h * h, C).numpy(), "h": h, "w": h,
+              "domain": "domain_0", "action_ids": actions[b].numpy()} for b in range(B)]
+    mask = maskgit_collate_feature(items, cfg, np.random.default_rng(0))
+    return {"input_ids": lat.to(device), "labels": lat.to(device),
+            "masked_tokens_indicator": torch.from_numpy(
+                mask["masked_tokens_indicator"]).to(device),
+            "action_ids": actions.to(device), "domain_id": 0}
+
+
+def mar_training_phase(records):
+    """Phase 11: the full-width d512 STMAR training step through the kernels,
+    in both temporal layouts, then an overfit run with fixed draws."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    torch.cuda.empty_cache()
+    cfg = mar_flagship_config(40)
+    require(cfg.mlp_drop == 0.05, f"the d512 card's mlp_drop is {cfg.mlp_drop}")
+    B, T = 8, cfg.T
+    t0 = time.perf_counter()
+    model = STMAR(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                  generator=torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    mask = stacked_param_mask(model, cfg)
+    tx = make_domain_sliced_optimizer(model, 1e-4, stacked_mask=mask,
+                                      num_domains=cfg.num_domains)
+    step = make_train_step(model.train(), tx, continuous=True,
+                           action_loss_weight=cfg.action_loss_weight)
+    batch = mar_batch(cfg, B, "cuda")
+    S_p, S_tot = model.seq_len, model.seq_len + cfg.action_token_size
+    heads, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    patch_tokens, trunk_tokens = B * T * S_p, B * T * S_tot
+    masked = batch["masked_tokens_indicator"].float().mean().item()
+    print(f"  d512 STMAR card, 40 domains: {n_params / 1e6:.1f}M params, mlp_drop "
+          f"{cfg.mlp_drop}, remat, sliced AdamW (fp32 moments); B={B}, {masked:.1%} of "
+          f"latents masked (built in {time.perf_counter() - t0:.1f} s)", flush=True)
+    runs = {}
+    for i, layout in enumerate(("transpose", "resident")):
+        for block in model.decoder.layers:
+            block.temporal_layout = layout
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(batch, rng=100 * i)  # warm-up, not counted
+        torch.cuda.synchronize()
+        print(f"  [{layout}] warm-up step {time.perf_counter() - t0:.2f} s, loss "
+              f"{m['loss'].item():.4f}", flush=True)
+        reset_counts()
+        secs, metrics = [], []
+        for j in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(step(batch, rng=100 * i + j + 1))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for m in metrics:
+            require(math.isfinite(m["loss"].item()) and math.isfinite(m["grad_norm"].item()),
+                    f"[{layout}] training step not finite: {m}")
+            require(m["skipped"].item() == 0.0, f"[{layout}] a training step was skipped")
+        med = sorted(secs)[len(secs) // 2]
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        print(f"  [{layout}] {TRAIN_STEPS} steps: {', '.join(f'{t:.4f}' for t in secs)} s; "
+              f"median {med:.4f} s, {patch_tokens / med:.1f} patch tokens/s "
+              f"({patch_tokens} a step; {trunk_tokens / med:.1f} trunk tokens/s of "
+              f"{trunk_tokens}); loss {metrics[0]['loss'].item():.4f} -> "
+              f"{metrics[-1]['loss'].item():.4f}, grad norm "
+              f"{metrics[-1]['grad_norm'].item():.4f}, skipped 0; launches per step "
+              f"{per_step}; peak memory {peak / 2**30:.2f} GiB", flush=True)
+        want = train_launches(cfg.num_layers, layout)
+        require(per_step == want, f"[{layout}] launches per step {per_step}, want {want}")
+        profile_run(f"d512 STMAR training step ({layout})",
+                    lambda: step(batch, rng=100 * i + 99), med)
+        runs[layout] = (med, counts, per_step)
+    (t_med, t_counts, t_per), (r_med, r_counts, r_per) = runs["transpose"], runs["resident"]
+    print(f"  resident minus transpose, median step: {(r_med - t_med) * 1e3:+.2f} ms "
+          f"({(r_med - t_med) / t_med:+.2%}; one call, not a claim)", flush=True)
+    set_launches(records, {("K1'", (B * T, S_tot, heads, hd)): t_counts["K1'"],
+                           ("K3'", (B * S_tot, T, heads, hd)): t_counts["K3'"]}, add=True)
+    set_launches(records, {("K2'", (B * T, S_tot, heads, hd)): t_counts["K2'"],
+                           ("K4'", (B * S_tot, T, heads, hd)): t_counts["K4'"],
+                           ("K5' fwd", (B, T, S_tot, heads, hd)): r_counts["K5' fwd"],
+                           ("K5' bwd", (B, T, S_tot, heads, hd)): r_counts["K5' bwd"]})
+    for r in records:
+        shape = tuple(r["shape"])
+        if shape in ((B * T, S_tot, heads, hd), (B * S_tot, T, heads, hd)):
+            r["train_launches_per_step"] = t_per[r["name"]]
+        elif r["name"].startswith("K5'") and shape == (B, T, S_tot, heads, hd):
+            r["train_launches_per_step"] = r_per[r["name"]]
+
+    # overfit the fixed batch with the diffusion draws and the dropout masks
+    # fixed too, so that the loss moves only with the weights (transpose)
+    for block in model.decoder.layers:
+        block.temporal_layout = "transpose"
+    del tx, step
+    of_tx = make_domain_sliced_optimizer(model, 3e-4, weight_decay=0.0,
+                                         stacked_mask=mask, num_domains=cfg.num_domains)
+    of_step = make_train_step(model, of_tx, continuous=True,
+                              action_loss_weight=cfg.action_loss_weight)
+    g = torch.Generator("cuda").manual_seed(7)
+    draws = {"t": torch.randint(0, 1000, (patch_tokens,), generator=g, device="cuda"),
+             "noise": torch.randn(patch_tokens, model.patch_dim, generator=g, device="cuda")}
+    losses = [of_step(batch, rng=0, draws=draws)["loss"].item()
+              for _ in range(MAR_OVERFIT_STEPS)]
+    print(f"  overfit {MAR_OVERFIT_STEPS} steps (lr 3e-4, wd 0, fixed t, noise and "
+          f"dropout masks): loss {losses[0]:.4f} -> {losses[-1]:.4f} (every 5th: "
+          f"{', '.join(f'{x:.4f}' for x in losses[::5])}); must fall by >= "
+          f"{MAR_OVERFIT_MARGIN}", flush=True)
+    require(all(math.isfinite(x) for x in losses), "overfit loss not finite")
+    require(losses[-1] <= losses[0] - MAR_OVERFIT_MARGIN, "overfit loss did not fall")
+
+
+def mar_exactness_phase():
+    """Phase 12: a 2-layer d512 STMAR card in fp32, loss and every gradient
+    with the kernels on the card against the plain versions on the CPU, in
+    both layouts, the draws and the dropout masks handed in."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+
+    cfg = mar_flagship_config(40)
+    cfg.num_layers = 2
+    B, T = 2, cfg.T
+    g = torch.Generator().manual_seed(3)
+    host = STMAR(cfg, dtype=torch.float32, device="cpu", remat=True, generator=g)
+    with torch.no_grad():  # wake the zero-init heads and tokens
+        for p in host.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    batch = mar_batch(cfg, B, "cpu")
+    rows = B * T * host.seq_len
+    draws = {"t": torch.randint(0, 1000, (rows,), generator=g),
+             "noise": torch.randn(rows, host.patch_dim, generator=g)}
+    S_tot, C = host.seq_len + cfg.action_token_size, cfg.d_model
+    hidden = int(C * cfg.mlp_ratio)
+    keep = 1.0 - cfg.mlp_drop
+    for layout in ("transpose", "resident"):
+        lead = (B * S_tot, T) if layout == "transpose" else (B, T, S_tot)
+        masks = [(torch.rand(*lead, hidden, generator=g) < keep,
+                  torch.rand(*lead, C, generator=g) < keep) for _ in range(cfg.num_layers)]
+        card = STMAR(cfg, dtype=torch.float32, device="cuda", remat=True,
+                     temporal_layout=layout)
+        card.load_state_dict({k: v.cuda() for k, v in host.state_dict().items()})
+        for block in host.decoder.layers:
+            block.temporal_layout = layout
+        losses, grads = [], []
+        reset_counts()
+        for model, device in ((card, "cuda"), (host, "cpu")):
+            host.zero_grad()
+            b = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in batch.items()}
+            out = model(b["input_ids"], b["labels"], b["action_ids"], 0,
+                        b["masked_tokens_indicator"],
+                        dropout=[tuple(m.to(device) for m in pair) for pair in masks],
+                        draws={k: v.to(device) for k, v in draws.items()})
+            out["loss"].backward()
+            losses.append(out["loss"].item())
+            grads.append({n: p.grad.cpu() for n, p in model.named_parameters()
+                          if p.grad is not None})
+        counts = read_counts()
+        want = train_launches(cfg.num_layers, layout)
+        require(all(counts[k] for k, n in want.items() if n),
+                f"[{layout}] the card's pass missed a kernel: {counts}")
+        require(grads[0].keys() == grads[1].keys(), "gradient sets differ")
+        loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+        worst, worst_name = 0.0, ""
+        for n, w in grads[1].items():
+            scale = w.abs().max().item()
+            err = (grads[0][n] - w).abs().max().item()
+            ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+            if ratio > worst:
+                worst, worst_name = ratio, n
+        print(f"  [{layout}] 2-layer d512 STMAR, B={B}, fp32, dropout {cfg.mlp_drop}: loss "
+              f"card {losses[0]:.6f} cpu {losses[1]:.6f} (rel err {loss_err:.3e}, tol 1e-5); "
+              f"{len(grads[1])} gradient tensors, worst max|dg|/max|g| {worst:.3e} at "
+              f"{worst_name} (tol {GRAD_TOL}); launches {counts}", flush=True)
+        require(loss_err <= 1e-5, f"[{layout}] card loss differs from the CPU's")
+        require(worst <= GRAD_TOL, f"[{layout}] gradient {worst_name} differs: {worst:.3e}")
+        del card
+
+
+def mar_train_entry_phase():
+    """Phase 13: `train_multi --model_type continuous` on the card for a few
+    steps of a 2-layer d512 STMAR card on a synthetic latent dataset, then
+    `generate --use_feature` from the checkpoint it wrote."""
+    from hma_tpu_torch.train_multi import main as train_main
+
+    cfg = mar_flagship_config(1)
+    cfg.num_layers = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "domain_0_vae_max1000000_train"
+        write_latent_dataset(data, cfg, seed=6)
+        cfg.save_pretrained(str(tmp / "config.json"))
+        (tmp / "split.yaml").write_text("domains: domain_0\n")
+        reset_counts()
+        train_main(["--genie_config", str(tmp / "config.json"), "--model_type", "continuous",
+                    "--output_dir", str(tmp / "run"), "--train_split",
+                    str(tmp / "split.yaml"), "--data_root", str(tmp),
+                    "--window_size", str(cfg.T), "--per_device_train_batch_size", "2",
+                    "--per_device_eval_batch_size", "2", "--max_train_steps", "4",
+                    "--overfit_first_batch", "--checkpointing_steps", "2",
+                    "--eval_every_n_steps", "4", "--max_eval_steps", "1",
+                    "--log_every", "1", "--num_warmup_steps", "1",
+                    "--learning_rate", "3e-4"])
+        counts = read_counts()
+        lines = [json.loads(l) for l in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+        losses = [l["train/loss"] for l in lines if "train/loss" in l]
+        val = [l["val/loss"] for l in lines if "val/loss" in l]
+        print(f"  train_multi --model_type continuous: {len(losses)} steps, losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}, val loss {val}; launches "
+              f"{counts}; checkpoints "
+              f"{sorted(d.name for d in (tmp / 'run').iterdir() if d.is_dir())}", flush=True)
+        require(len(losses) == 4 and all(math.isfinite(x) for x in losses + val) and val,
+                "train_multi losses")
+        require(all(counts[k] for k in TRAINING_KERNELS),
+                f"train_multi missed a kernel: {counts}")
+        require((tmp / "run" / "final_checkpt" / "train_state.pt").is_file(),
+                "no final checkpoint")
+        check_generate_feature(tmp / "run", data, tmp / "gen", cfg)
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 14)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -1212,7 +1628,12 @@ def main(argv=None) -> int:
              (7, "gradient exactness, card vs CPU", exactness_phase),
              (8, "entry point: train_multi, then generate", train_entry_phase),
              (9, "rollouts, d512 STMAR card", lambda: mar_path_phase(records)),
-             (10, "entry point: generate --use_feature", feature_entry_phase)]
+             (10, "entry point: generate --use_feature", feature_entry_phase),
+             (11, "training step, d512 STMAR card, both layouts",
+              lambda: mar_training_phase(records)),
+             (12, "STMAR gradient exactness, card vs CPU, both layouts", mar_exactness_phase),
+             (13, "entry point: train_multi --model_type continuous, then generate",
+              mar_train_entry_phase)]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()
@@ -1220,7 +1641,7 @@ def main(argv=None) -> int:
             run()
             print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if {3, 4, 6, 9} <= phases:  # every kernel of the main paths was launched
+    if {3, 4, 6, 9, 11} <= phases:  # every kernel of the main paths was launched
         for r in records:
             require(r["launches"], f"{r['name']} {r['shape']} never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

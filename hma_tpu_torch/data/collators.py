@@ -1,14 +1,14 @@
-"""MaskGIT batch collator as a pure numpy function with an explicit RNG
-(own copy of the discrete part of hma_tpu/data/collators.py).
+"""MaskGIT batch collators as pure numpy functions with an explicit RNG
+(own copy of hma_tpu/data/collators.py).
 
 Semantics mirror the reference collator (hma/data.py:28-90): Copilot4D-style
 uniform token corruption at a random global rate; with prob
 `non_mlm_ratio`, a "non-MLM" branch that leaves a random prompt prefix
 unmasked and corrupts later frames with compounding rates, otherwise
 standard MLM from frame 1; then per-(example, frame) cosine-scheduled
-masking to `mask_token_id`. It draws from the given np.random.Generator in
-exactly the order `hma_tpu`'s does, so the same seed gives the same batch.
-The continuous collator waits for the STMAR family.
+masking to `mask_token_id` (discrete) or to a `masked_tokens_indicator`
+(continuous). Each draws from the given np.random.Generator in exactly the
+order `hma_tpu`'s does, so the same seed gives the same batch.
 """
 
 from __future__ import annotations
@@ -78,5 +78,48 @@ def maskgit_collate(batch: list[dict], config,
     # all-or-nothing: any item whose actions were dropped drops them for
     # the whole batch, which the model takes as one tensor
     if all("action_ids" in ex for ex in batch):
+        out["action_ids"] = np.stack([ex["action_ids"] for ex in batch]).astype(np.float32)
+    return out
+
+
+def maskgit_collate_feature(batch: list[dict], config,
+                            rng: np.random.Generator) -> dict:
+    """Continuous-latent collator (reference: get_maskgit_collator_feature,
+    hma/data.py:103): no corruption, the mask as `masked_tokens_indicator`
+    (B, T, h, w) int32 instead of in place; input_ids and labels are the
+    same latents (B, T*h*w, C) fp32."""
+    h, w = batch[0]["h"], batch[0]["w"]
+    B, T = len(batch), config.T
+    x = np.stack([ex["input_ids"] for ex in batch])  # (B, T*h*w, C)
+    C = x.shape[-1]
+    x_THWC = x.reshape(B, T, h, w, C)
+
+    mask_token_indicator = np.zeros((B, T, h, w), dtype=np.int32)
+    if config.dataloader_apply_mask:
+        if rng.uniform() < config.non_mlm_ratio:
+            lo = min(config.num_prompt_frames, config.T - 1)
+            first_masked_frame = int(rng.integers(lo, config.T))
+        else:
+            first_masked_frame = 1
+        mask = np.zeros((B, T - first_masked_frame, h, w), dtype=bool)
+        while not mask.any():
+            rand = rng.uniform(size=(B, T - first_masked_frame, 1, 1))
+            lo_ratio = config.dataloader_mask_ratio_min
+            mask_prob_T = _cosine(rand * (1 - lo_ratio) + lo_ratio)
+            r = rng.uniform(size=(B, T - first_masked_frame, h, w))
+            mask = r < mask_prob_T
+        mask_token_indicator = np.concatenate(
+            [np.zeros((B, first_masked_frame, h, w), dtype=np.int32),
+             mask.astype(np.int32)], axis=1)
+
+    out = {
+        "input_ids": x_THWC.reshape(B, T * h * w, C).astype(np.float32),
+        "labels": x_THWC.reshape(B, T * h * w, C).astype(np.float32),
+        "masked_tokens_indicator": mask_token_indicator,
+        "domain": [ex["domain"] for ex in batch],
+        "h": [h] * B,
+        "w": [w] * B,
+    }
+    if all("action_ids" in ex for ex in batch):  # all-or-nothing, as above
         out["action_ids"] = np.stack([ex["action_ids"] for ex in batch]).astype(np.float32)
     return out

@@ -1,24 +1,30 @@
-"""Gaussian diffusion sampling (counterpart of hma_tpu/diffusion/gaussian.py).
+"""Gaussian diffusion: training loss and sampling
+(counterpart of hma_tpu/diffusion/gaussian.py).
 
 The schedules are numpy float64 constants, computed exactly as the JAX file
 computes them: cosine or linear betas over `diffusion_steps`, re-derived
 over a respaced subset of timesteps. The sampler is ancestral sampling with
 epsilon prediction and the learned-range variance, a Python loop where the
-JAX file has a `lax.scan`.
+JAX file has a `lax.scan`. `training_losses` is the eps-MSE plus the
+variational bound of the learned variance, with `hma_tpu`'s guards: the
++-80 clamps before every exp() and the double `where` that keeps the
+unselected branch's overflow out of the backward (`torch.where` has the
+same 0 * inf = NaN backward as `jnp.where`).
 
-The serving half only: `q_sample`, `training_losses` and the KL /
-log-likelihood helpers belong to training and are not ported yet
-(ROADMAP.md Queue A, STMAR training).
+The schedule helpers take a step index as an int (sampling: one step for
+every row) or a tensor of per-row timesteps (training); a schedule value is
+rounded to fp32 as the JAX file's `_extract` rounds its table.
 
 Random draws: every loop takes a `torch.Generator` or, for the tests, the
 per-step normals themselves as `zs` (K, N, C) in loop order (`zs[i]`
-belongs to step index K-1-i), since `jax.random` and torch never agree.
+belongs to step index K-1-i), since `jax.random` and torch never agree;
+`training_losses` takes its timesteps and noise as tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -133,34 +139,136 @@ def make_schedule(noise_schedule: str = "cosine", diffusion_steps: int = 1000,
     )
 
 
-def _at(arr: np.ndarray, idx: int) -> float:
+Step = Union[int, torch.Tensor]  # one step index, or (N,) per-row timesteps
+
+_TABLES: dict = {}  # (id of a schedule array, device) -> (array, fp32 table)
+
+
+def _table(arr: np.ndarray, device) -> torch.Tensor:
+    """`arr` as an fp32 tensor on `device`, made once per array and device
+    (the array is kept alive beside it, so its id is not reused)."""
+    key = (id(arr), str(device))
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not arr:
+        hit = _TABLES[key] = (arr, torch.from_numpy(arr.astype(np.float32)).to(device))
+    return hit[1]
+
+
+def _log_betas(sched: DiffusionSchedule) -> np.ndarray:
+    key = ("log_betas", id(sched.betas))
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not sched.betas:
+        hit = _TABLES[key] = (sched.betas, np.log(np.maximum(sched.betas, 1e-20)))
+    return hit[1]
+
+
+def _at(arr: np.ndarray, idx: Step, ndim: int = 1):
     """Schedule value at step `idx`, rounded to fp32 as the JAX file's
-    `_extract` rounds the table."""
-    return float(np.float32(arr[idx]))
+    `_extract` rounds the table: a float for an int `idx`; for a (N,)
+    tensor of timesteps, their values shaped (N, 1, ...) to broadcast
+    against an `ndim`-dimensional tensor."""
+    if not torch.is_tensor(idx):
+        return float(np.float32(arr[idx]))
+    out = _table(arr, idx.device)[idx]
+    return out.reshape(idx.shape + (1,) * (ndim - idx.ndim))
 
 
-def predict_x0_from_eps(sched: DiffusionSchedule, xt: torch.Tensor, idx: int,
+def q_sample(sched: DiffusionSchedule, x0: torch.Tensor, t: Step,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion: x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise."""
+    return (_at(sched.sqrt_alphas_cumprod, t, x0.ndim) * x0
+            + _at(sched.sqrt_one_minus_alphas_cumprod, t, x0.ndim) * noise)
+
+
+def predict_x0_from_eps(sched: DiffusionSchedule, xt: torch.Tensor, idx: Step,
                         eps: torch.Tensor) -> torch.Tensor:
-    return (_at(sched.sqrt_recip_alphas_cumprod, idx) * xt
-            - _at(sched.sqrt_recipm1_alphas_cumprod, idx) * eps)
+    return (_at(sched.sqrt_recip_alphas_cumprod, idx, xt.ndim) * xt
+            - _at(sched.sqrt_recipm1_alphas_cumprod, idx, xt.ndim) * eps)
 
 
 def q_posterior_mean(sched: DiffusionSchedule, x0: torch.Tensor,
-                     xt: torch.Tensor, idx: int) -> torch.Tensor:
-    return (_at(sched.posterior_mean_coef1, idx) * x0
-            + _at(sched.posterior_mean_coef2, idx) * xt)
+                     xt: torch.Tensor, idx: Step) -> torch.Tensor:
+    return (_at(sched.posterior_mean_coef1, idx, x0.ndim) * x0
+            + _at(sched.posterior_mean_coef2, idx, x0.ndim) * xt)
 
 
-def learned_range_log_variance(sched: DiffusionSchedule, idx: int,
+def learned_range_log_variance(sched: DiffusionSchedule, idx: Step,
                                v: torch.Tensor) -> torch.Tensor:
     """Log-variance interpolated between the posterior's (min) and beta's
     (max) from the model's raw v output, with frac = (v + 1) / 2 clamped to
     [0, 1], the interval the interpolation is defined on: a variance head
     that drifts out of range saturates at the boundary."""
-    min_log = _at(sched.posterior_log_variance_clipped, idx)
-    max_log = _at(np.log(np.maximum(sched.betas, 1e-20)), idx)
+    min_log = _at(sched.posterior_log_variance_clipped, idx, v.ndim)
+    max_log = _at(_log_betas(sched), idx, v.ndim)
     frac = torch.clamp((v.float() + 1) / 2, 0.0, 1.0)
     return frac * max_log + (1 - frac) * min_log
+
+
+def _normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL(N1 || N2) elementwise, each exp() input clamped to [-80, 80]: fp32
+    exp overflows just past 88, and an inf here would reach the backward
+    of the branch that the loss discards as 0 * inf = NaN."""
+    return 0.5 * (-1.0 + logvar2 - logvar1
+                  + torch.exp(torch.clamp(logvar1 - logvar2, -80.0, 80.0))
+                  + (mean1 - mean2) ** 2 * torch.exp(torch.clamp(-logvar2, -80.0, 80.0)))
+
+
+def _discretized_gaussian_log_likelihood(x, means, log_scales):
+    """Log-likelihood of x under a Gaussian discretised to bins of 2/255,
+    -log_scales clamped to [-80, 80] before exp() (past it the CDFs are
+    saturated, so the forward is unchanged and the backward is 0, not
+    pdf(inf) * inf = NaN)."""
+    centered = x - means
+    inv_stdv = torch.exp(torch.clamp(-log_scales, -80.0, 80.0))
+    cdf_plus = torch.special.ndtr(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = torch.special.ndtr(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_delta))
+
+
+def training_losses(net_apply: Callable, sched: DiffusionSchedule,
+                    x0: torch.Tensor, t: torch.Tensor, cond, noise: torch.Tensor,
+                    channel_mask: Optional[torch.Tensor] = None) -> dict:
+    """Per-row loss: eps-MSE plus the variational bound of the learned-range
+    variance (the VB term sees the eps prediction through a stop-gradient).
+
+    net_apply(x_t, t, cond) -> (N, 2C) = [eps, v]; x0, noise: (N, C); t:
+    (N,) timesteps; channel_mask: optional (C,) weights of the channels that
+    count (padded action channels carry noise the net never sees).
+    Returns {"loss", "mse", "vb"}, each (N,).
+    """
+    xt = q_sample(sched, x0, t, noise)
+    out = net_apply(xt, t, cond)
+    C = x0.shape[-1]
+    eps_pred, v = out[..., :C], out[..., C:]
+    dims = tuple(range(1, x0.ndim))
+
+    def cmean(x):
+        if channel_mask is None:
+            return x.mean(dims)
+        w = torch.broadcast_to(channel_mask, x.shape).float()
+        return (x * w).sum(dims) / torch.clamp(w.sum(dims), min=1e-8)
+
+    mse = cmean((noise.float() - eps_pred.float()) ** 2)
+    x0_pred = predict_x0_from_eps(sched, xt, t, eps_pred.detach())
+    model_mean = q_posterior_mean(sched, x0_pred, xt, t)
+    model_logvar = learned_range_log_variance(sched, t, v)
+    true_mean = q_posterior_mean(sched, x0, xt, t)
+    true_logvar = _at(sched.posterior_log_variance_clipped, t, x0.ndim)
+    # Each branch gets a finite logvar on the rows where the other one is
+    # selected: forward-identical, and no 0 * inf reaches the backward.
+    t_is0 = (t == 0).reshape(t.shape + (1,) * (x0.ndim - t.ndim))
+    kl = _normal_kl(true_mean, true_logvar, model_mean,
+                    torch.where(t_is0, true_logvar, model_logvar))
+    kl = cmean(kl) / math.log(2.0)
+    nll = -_discretized_gaussian_log_likelihood(
+        x0, model_mean, 0.5 * torch.where(t_is0, model_logvar, true_logvar))
+    nll = cmean(nll) / math.log(2.0)
+    vb = torch.where(t == 0, nll, kl)
+    return {"loss": mse + vb, "mse": mse, "vb": vb}
 
 
 def _p_sample_step(sched: DiffusionSchedule, x: torch.Tensor, idx: int,

@@ -10,11 +10,18 @@
   (K3' forward, K4' backward). Each launches its CUDA kernels for a CUDA
   tensor and uses their plain versions only for a CPU tensor; gradients
   reach the fused qkv projection through the q/k/v views.
+- `SelfAttention.temporal_resident` is the causal pass of the resident
+  layout (`temporal_layout="resident"`): the (B, T, S, C) stream is never
+  transposed; `ops.temporal_attention.FusedTemporalResident` (K5') reads
+  q, k, v where the qkv projection leaves them and hands the projection
+  its gradient as one (B, T, S, 3, H, D) buffer.
 - `SelfAttention.decode_step` is one timestep against a read-only temporal
   KV cache; it is plain PyTorch, as its JAX counterpart is plain XLA, and
   rounds its probs to the compute dtype as `_attend` does.
 
-`temporal_resident`, `decode_window` and `CrossAttention` are not ported yet.
+`decode_window` and `CrossAttention` are not ported yet. `attn_drop` is not
+an argument: `hma_tpu`'s attention builds its dropout and never calls it, a
+quirk of the reference, so it is a no-op there.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from hma_tpu_torch.ops.fused_attention import FusedAttention, fused_attention_plain
-from hma_tpu_torch.ops.temporal_attention import FusedTemporalAttention
+from hma_tpu_torch.ops.temporal_attention import (
+    FusedTemporalAttention,
+    FusedTemporalResident,
+)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # decode_step's mask value
 
@@ -116,6 +126,20 @@ class SelfAttention(nn.Module):
         else:
             out = FusedAttention.apply(q, k, v, False)
         return self.proj(out.reshape(B, N, C))
+
+    def temporal_resident(self, x_BTSC: torch.Tensor) -> torch.Tensor:
+        """Causal attention over T at every (b, s) site of x: (B, T, S, C),
+        without leaving that layout. q, k, v stay (B, T, S, H, D) views of
+        the (B, T, S, 3, H, D) projection (q and k normalised first under
+        qk_norm); K5''s out (B, T, S, H, D) feeds `proj` as (B, T, S, C)."""
+        B, T, S, C = x_BTSC.shape
+        qkv = self.qkv(x_BTSC).view(B, T, S, 3, self.num_heads, self.head_dim)
+        q = k = None
+        if self.norm is not None:
+            q = self.norm(qkv[..., 0, :, :]).to(self.dtype)
+            k = self.norm(qkv[..., 1, :, :]).to(self.dtype)
+        out = FusedTemporalResident.apply(qkv, self.scale, q, k)
+        return self.proj(out.view(B, T, S, C))
 
     def decode_step(self, x_t: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, t: int):

@@ -14,8 +14,9 @@ loop (`ops.diffusion_sampler.fused_denoise_loop`, K6' on a CUDA tensor, its
 plain version on a CPU tensor). `sample(premod=False)` evaluates the whole
 net at every step and is the oracle the premodulated path is tested against.
 
-`DiffLoss.loss` (training) is not ported yet: ROADMAP.md Queue A, STMAR
-training.
+`DiffLoss.loss` is the training loss: per-row timesteps in [0, 1000) of
+the unrespaced cosine schedule and Gaussian noise, drawn from a generator
+or handed in as tensors, through `diffusion.gaussian.training_losses`.
 
 The two LayerNorm forms differ and both are kept: the plain head uses flax's
 fast-variance form max(0, E[x^2] - E[x]^2) (`attention.LayerNorm`), the
@@ -34,6 +35,7 @@ from torch.nn import functional as F
 from hma_tpu_torch.diffusion.gaussian import (
     make_schedule,
     p_sample_loop,
+    training_losses,
 )
 from hma_tpu_torch.models.action_stems import DomainDense, DomainLayerNorm
 from hma_tpu_torch.models.attention import Dense, LayerNorm
@@ -230,6 +232,7 @@ class DiffLoss(nn.Module):
         else:
             self.net = SimpleMLPAdaLN(target_channels, width, z_channels, depth,
                                       dtype, device)
+        self.train_sched = make_schedule("cosine", 1000, "")
         self.gen_sched = make_schedule("cosine", 1000, num_sampling_steps)
         self._loop_cache = {}  # see _loop_kernel_inputs
 
@@ -268,10 +271,36 @@ class DiffLoss(nn.Module):
             return lambda x, t, c: self.net(x, t, c, domain_id)
         return self.net
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DiffLoss.loss (the diffusion training loss) is not ported yet: "
-            "ROADMAP.md Queue A, STMAR training")
+    def loss(self, target: torch.Tensor, z: torch.Tensor,
+             mask: Optional[torch.Tensor] = None, domain_id: Optional[int] = None,
+             dim_mask: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None, *,
+             t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Masked diffusion loss over token rows: target (N, C), z (N, Z),
+        mask (N,) weights of the rows that count (all, when None); dim_mask
+        (C,) the channels that exist (padded action channels are hidden
+        from the net and left out of the mean).
+
+        The draws, per-row timesteps t (N,) and noise (N, C), come from
+        `generator`, t first, or are handed in."""
+        N = target.shape[0]
+        if t is None:
+            t = torch.randint(0, self.train_sched.num_timesteps, (N,),
+                              generator=generator, device=target.device)
+        if noise is None:
+            noise = torch.randn(target.shape, generator=generator, device=target.device)
+        net = self._apply_net(domain_id)
+        if dim_mask is not None:
+            base = net
+            net = lambda x, tt, c: base(x * dim_mask, tt, c)
+            target = target * dim_mask
+        out = training_losses(net, self.train_sched, target, t, z, noise,
+                              channel_mask=dim_mask)
+        loss = out["loss"]
+        if mask is None:
+            return loss.mean()
+        return (loss * mask).sum() / (mask.sum() + 1e-8)
 
     @torch.no_grad()
     def sample(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,

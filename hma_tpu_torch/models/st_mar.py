@@ -5,10 +5,16 @@ The same ST-transformer trunk as STMaskGIT, over continuous VAE latents
 (B, T, h, w, C): masked positions hold a learned latent mask token, frames
 are patchified (patch_size p), embedded linearly, and the trunk's per-token
 outputs condition a `DiffLoss` head that models each patch's latent
-distribution. Ported: `compute_latents` (full forward), `init_cache` and
-`frame_latents` (one frame against the temporal KV cache), `sample_tokens`
-and `sample_actions` (the head's sampler). The training loss (`forward`) is
-not ported yet: ROADMAP.md Queue A, STMAR training.
+distribution. Ported: the training loss (`forward`: masked diffusion loss
+over the patch rows, the action-suffix mask and the action head's loss on
+`jointly_predict_actions` cards), `compute_latents` (full forward),
+`init_cache` and `frame_latents` (one frame against the temporal KV cache),
+`sample_tokens` and `sample_actions` (the head's sampler).
+
+Training draws (the action-suffix start, the diffusion timesteps and noise,
+the trunk's dropout) come from explicit generators or are handed in as
+tensors (`forward`'s `draws`), as `hma_tpu` takes them from its
+"action_drop", "diffusion" and "dropout" keys.
 
 Parameters are fp32 and are cast to the compute `dtype` at use, so a
 converted `hma_tpu` tree (`convert.params_from_jax`) loads with
@@ -53,7 +59,9 @@ class STMAR(nn.Module):
     """Continuous masked-AR world model with diffusion decoding."""
 
     def __init__(self, config: DiffusionGenieConfig, dtype=torch.bfloat16,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 remat: bool = False, remat_policy: str = "full",
+                 temporal_layout: str = "transpose"):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -64,8 +72,9 @@ class STMAR(nn.Module):
             cfg.num_layers, num_heads=cfg.num_heads, d_model=cfg.d_model,
             qkv_bias=cfg.qkv_bias, proj_bias=cfg.proj_bias, qk_norm=cfg.qk_norm,
             use_mup=cfg.use_mup, mlp_ratio=cfg.mlp_ratio, mlp_bias=cfg.mlp_bias,
-            action_processing=cfg.action_network, num_domains=cfg.num_domains,
-            dtype=dtype, device=device)
+            mlp_drop=cfg.mlp_drop, action_processing=cfg.action_network,
+            num_domains=cfg.num_domains, temporal_layout=temporal_layout,
+            dtype=dtype, device=device, remat=remat, remat_policy=remat_policy)
         self.pos_embed_TSC = nn.Parameter(torch.zeros(
             1, cfg.T, self.seq_len + cfg.action_token_size, cfg.d_model, device=device))
         self.diffusion_pos_embed_learned = nn.Parameter(torch.zeros(
@@ -142,11 +151,13 @@ class STMAR(nn.Module):
     def compute_latents(self, x_TSC_in: torch.Tensor,
                         action_ids: Optional[torch.Tensor] = None, domain_id: int = 0,
                         action_mask: Optional[torch.Tensor] = None,
-                        skip_normalization: bool = False):
+                        skip_normalization: bool = False, dropout=None):
         """Full-stack forward. x_TSC_in: patchified latents (B, T, h_, w_,
         patch_dim) or (B, T, S_p, patch_dim); action_mask: optional
         (B, T, 1, 1), 1 where the action tokens are replaced by the learned
-        action mask tokens (`jointly_predict_actions` cards).
+        action mask tokens (`jointly_predict_actions` cards); dropout: the
+        trunk's MLP dropout (`STTransformerDecoder.forward`), None in every
+        forward but training's.
 
         Returns (z (B, T, S_p, d_model) fp32, pooled action latents
         (B, T, d_model) fp32 or None).
@@ -175,7 +186,7 @@ class STMAR(nn.Module):
         S_tot = x_TSC.shape[2]
         x_TSC = self.z_proj_ln(
             x_TSC + self.pos_embed_TSC[:, :T, :S_tot].to(self.dtype)).to(self.dtype)
-        x_TSC = self.decoder(x_TSC, action_emb, domain_id)
+        x_TSC = self.decoder(x_TSC, action_emb, domain_id, dropout)
 
         action_latents = None
         if cfg.jointly_predict_actions:
@@ -184,10 +195,73 @@ class STMAR(nn.Module):
         dpe = self.diffusion_pos_embed_learned.view(1, cfg.T, self.seq_len, cfg.d_model)
         return z + dpe[:, :T, :S], action_latents
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "STMAR.forward (the diffusion training loss) is not ported yet: "
-            "ROADMAP.md Queue A, STMAR training")
+    def forward(self, input_ids: torch.Tensor, labels: torch.Tensor,
+                action_ids: Optional[torch.Tensor] = None, domain_id: int = 0,
+                masked_tokens_indicator: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, dropout=None,
+                draws: Optional[dict] = None) -> dict:
+        """Diffusion training loss over the masked patch rows.
+
+        input_ids/labels: (B, T, h, w, C) float latents (already times
+        SVD_SCALE); masked_tokens_indicator: (B, T, h, w), > 0 where a
+        latent is masked. dropout: the trunk's MLP dropout (a generator or
+        per-block masks; None is `hma_tpu`'s deterministic forward).
+
+        Draws, in this order from `generator` unless `draws` holds them:
+        "action_t0" (B,) the first masked action frame (joint cards with
+        actions), "t" (R,) and "noise" (R, patch_dim) for the R = rows x
+        diffusion_batch_mul patch rows, "action_t" and "action_noise" for
+        the action head's rows.
+
+        Returns {"loss", "acc" (0)} and, on joint cards with actions,
+        "action_loss" and "actions" (the pooled action latents).
+        """
+        cfg = self.config
+        B, T = input_ids.shape[:2]
+        if masked_tokens_indicator is None:
+            raise ValueError("STMAR training requires masked_tokens_indicator")
+        draws = draws or {}
+        dev = input_ids.device
+        mask = masked_tokens_indicator
+        x = torch.where(mask[..., None] > 0, self.mask_token[None].to(input_ids.dtype),
+                        input_ids)
+        x = patchify(x, cfg.patch_size)
+
+        action_mask = None
+        if action_ids is not None and cfg.jointly_predict_actions:
+            t0 = draws.get("action_t0")
+            if t0 is None:
+                t0 = torch.randint(0, T, (B,), generator=generator, device=dev)
+            action_mask = (torch.arange(T, device=dev)[None, :] >= t0.reshape(B, 1))
+            action_mask = action_mask.to(self.dtype)[..., None, None]
+
+        z, action_latents = self.compute_latents(x, action_ids, domain_id, action_mask,
+                                                 dropout=dropout)
+        target = patchify(labels, cfg.patch_size)
+        patch_mask = (patchify(mask[..., None].float(), cfg.patch_size).sum(-1) > 0).float()
+        rows_z = z.reshape(-1, cfg.d_model)
+        rows_t = target.reshape(-1, self.patch_dim).float()
+        rows_m = patch_mask.reshape(-1)
+        mul = cfg.diffusion_batch_mul  # torch's .repeat tiles along rows, as jnp.tile
+        if mul > 1:
+            rows_z, rows_t, rows_m = rows_z.repeat(mul, 1), rows_t.repeat(mul, 1), rows_m.repeat(mul)
+        loss = self.diffloss.loss(rows_t, rows_z, rows_m, generator=generator,
+                                  t=draws.get("t"), noise=draws.get("noise"))
+        out = {"loss": loss, "acc": torch.zeros((), device=dev)}
+        if action_latents is not None and action_ids is not None:
+            dim_mask = (torch.arange(cfg.max_d_action, device=dev)
+                        < cfg.d_actions[domain_id]).float()
+            a_rows_z = action_latents.reshape(-1, cfg.d_model)
+            a_rows_t = action_ids.reshape(-1, cfg.max_d_action).float()
+            a_rows_m = action_mask[..., 0, 0].reshape(-1)
+            if mul > 1:
+                a_rows_z, a_rows_t = a_rows_z.repeat(mul, 1), a_rows_t.repeat(mul, 1)
+                a_rows_m = a_rows_m.repeat(mul)
+            out["action_loss"] = self.action_diff_loss.loss(
+                a_rows_t, a_rows_z, a_rows_m, domain_id, dim_mask, generator,
+                t=draws.get("action_t"), noise=draws.get("action_noise"))
+            out["actions"] = action_latents
+        return out
 
     # ------------------------------------------------------------------
     # Incremental (KV-cached) path

@@ -52,11 +52,12 @@ class STMaskGIT(nn.Module):
     """Discrete masked-transformer world model.
 
     `remat` checkpoints every STBlock in a forward that records gradients
-    (`STTransformerDecoder`; only the "full" `remat_policy`)."""
+    (`STTransformerDecoder`; only the "full" `remat_policy`);
+    `temporal_layout` is "transpose" or "resident" (`STBlock`)."""
 
     def __init__(self, config: GenieConfig, dtype=torch.bfloat16, device="cuda",
                  generator: Optional[torch.Generator] = None, remat: bool = False,
-                 remat_policy: str = "full"):
+                 remat_policy: str = "full", temporal_layout: str = "transpose"):
         super().__init__()
         cfg = config
         if cfg.jointly_predict_actions:
@@ -70,7 +71,8 @@ class STMaskGIT(nn.Module):
             cfg.num_layers, num_heads=cfg.num_heads, d_model=cfg.d_model,
             qkv_bias=cfg.qkv_bias, proj_bias=cfg.proj_bias, qk_norm=cfg.qk_norm,
             use_mup=cfg.use_mup, mlp_ratio=cfg.mlp_ratio, mlp_bias=cfg.mlp_bias,
-            action_processing=cfg.action_network, num_domains=cfg.num_domains,
+            mlp_drop=cfg.mlp_drop, action_processing=cfg.action_network,
+            num_domains=cfg.num_domains, temporal_layout=temporal_layout,
             dtype=dtype, device=device, remat=remat, remat_policy=remat_policy)
         self.pos_embed_TSC = nn.Parameter(torch.zeros(
             1, cfg.T, cfg.S + cfg.action_token_size, cfg.d_model, device=device))
@@ -131,11 +133,13 @@ class STMaskGIT(nn.Module):
 
     def compute_logits(self, x_TS: torch.Tensor,
                        action_ids: Optional[torch.Tensor] = None,
-                       domain_id: int = 0):
+                       domain_id: int = 0, dropout=None):
         """Full-stack forward.
 
         x_TS: (B, T, S) int token ids (mask_token_id where masked);
-        action_ids: (B, T, max_d_action) fp32 raw actions, or None.
+        action_ids: (B, T, max_d_action) fp32 raw actions, or None;
+        dropout: the trunk's MLP dropout (`STTransformerDecoder.forward`),
+        None in every forward but training's.
         Returns (logits (B, nv*fv, T, h, w) fp32, None).
         """
         cfg = self.config
@@ -151,21 +155,24 @@ class STMaskGIT(nn.Module):
                 x_TSC = torch.cat([x_TSC, cond.to(self.dtype)], dim=2)
         S_tot = x_TSC.shape[2]
         x_TSC = x_TSC + self.pos_embed_TSC[:, :T, :S_tot].to(self.dtype)
-        x_TSC = self.decoder(x_TSC, action_emb, domain_id)
+        x_TSC = self.decoder(x_TSC, action_emb, domain_id, dropout)
         logits = self.out_x_proj(x_TSC[:, :, :S] * self.readout_scale).float()
         return logits.reshape(B, T, h, w, -1).permute(0, 4, 1, 2, 3), None
 
     def forward(self, input_ids: torch.Tensor, labels: torch.Tensor,
-                action_ids: Optional[torch.Tensor] = None, domain_id: int = 0):
+                action_ids: Optional[torch.Tensor] = None, domain_id: int = 0,
+                dropout=None):
         """Masked-token factored cross-entropy and exact-token accuracy.
 
         input_ids/labels: (B, T, S) int ids (mask_token_id where masked in
         input_ids); the loss runs over the masked tokens of frames 1..T-1.
-        Returns {"loss", "acc"}, 0-d fp32 tensors.
+        dropout: the trunk's MLP dropout, handed in by the train step (a
+        generator or per-block masks); None is `hma_tpu`'s deterministic
+        forward. Returns {"loss", "acc"}, 0-d fp32 tensors.
         """
         B, T, S = input_ids.shape
         h = w = math.isqrt(S)
-        logits_CTHW, _ = self.compute_logits(input_ids, action_ids, domain_id)
+        logits_CTHW, _ = self.compute_logits(input_ids, action_ids, domain_id, dropout)
         relevant = input_ids.reshape(B, T, h, w)[:, 1:] == self.mask_token_id
         loss, acc = self.compute_video_loss_and_acc(
             logits_CTHW, labels.reshape(B, T, h, w), relevant)

@@ -3,10 +3,19 @@
 
 Per block: bidirectional spatial self-attention over the S (+ action)
 tokens of each frame, per-domain action injection, causal temporal
-self-attention over T at each spatial site, MLP. Only the default
-`temporal_layout="transpose"` is ported, with remat of every block ("full"
-policy); `window_step` and `scan_layers` are not (the converter unstacks a
-`layers_scan` tree).
+self-attention over T at each spatial site, MLP. Both temporal layouts are
+ported: "transpose" (the default: (B, T, S, C) <-> (B, S, T, C) around the
+temporal half) and "resident" (the stream stays (B, T, S, C) and the causal
+pass reads the qkv projection in place, K5'); so is remat of every block
+("full" policy). `window_step` and `scan_layers` are not (the converter
+unstacks a `layers_scan` tree).
+
+MLP dropout (`mlp_drop`, after the GELU and after fc2, as `hma_tpu`'s Mlp)
+runs only in a training forward that is handed `dropout`: a generator, from
+which the decoder draws one seed per block before the block runs (the masks
+are drawn from that seed inside the block, so remat's recompute draws the
+same ones), or the masks themselves. Every other forward, the rollouts'
+`frame_step` among them, is deterministic, as in `hma_tpu`.
 
 With `qk_norm=True`, norm1/norm2 are Identity, a quirk kept from the
 reference: the only normalisation is the qk-LayerNorm inside attention.
@@ -14,7 +23,7 @@ reference: the only normalisation is the qk-LayerNorm inside attention.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -25,18 +34,42 @@ from hma_tpu_torch.models.action_stems import DomainModulate
 from hma_tpu_torch.models.attention import Dense, LayerNorm, SelfAttention
 
 
+# One block's MLP dropout: None (deterministic), an int seed from which
+# both masks are drawn, or the two boolean keep-masks (hidden, output).
+BlockDropout = Union[None, int, Sequence[torch.Tensor]]
+
+
+def _dropout(x: torch.Tensor, keep: float, mask: torch.Tensor) -> torch.Tensor:
+    """flax's `nn.Dropout`: select(mask, x / keep_prob, 0), keep_prob
+    rounded to x's dtype as a JAX weak-typed float is."""
+    scaled = x / float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Mlp(nn.Module):
-    """Dense -> exact GELU -> Dense."""
+    """Dense -> exact GELU -> dropout -> Dense -> dropout."""
 
     def __init__(self, d_model: int, mlp_ratio: float = 4.0, mlp_bias: bool = True,
-                 dtype=torch.bfloat16, device="cuda"):
+                 mlp_drop: float = 0.0, dtype=torch.bfloat16, device="cuda"):
         super().__init__()
         hidden = int(d_model * mlp_ratio)
+        self.mlp_drop = mlp_drop
         self.fc1 = Dense(d_model, hidden, mlp_bias, dtype, device)
         self.fc2 = Dense(hidden, d_model, mlp_bias, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+    def forward(self, x: torch.Tensor, dropout: BlockDropout = None) -> torch.Tensor:
+        """`dropout`: see `BlockDropout`; ignored when mlp_drop is 0."""
+        h = F.gelu(self.fc1(x), approximate="none")
+        if dropout is None or self.mlp_drop == 0.0:
+            return self.fc2(h)
+        keep = 1.0 - self.mlp_drop
+        if isinstance(dropout, int):
+            g = torch.Generator(x.device).manual_seed(dropout)
+            masks = [torch.rand(shape, generator=g, device=x.device) < keep
+                     for shape in (h.shape, (*h.shape[:-1], self.fc2.out_features))]
+        else:
+            masks = dropout
+        return _dropout(self.fc2(_dropout(h, keep, masks[0])), keep, masks[1])
 
 
 class STBlock(nn.Module):
@@ -44,10 +77,14 @@ class STBlock(nn.Module):
 
     def __init__(self, num_heads: int, d_model: int, qkv_bias: bool = False,
                  proj_bias: bool = True, qk_norm: bool = True, use_mup: bool = True,
-                 mlp_ratio: float = 4.0, mlp_bias: bool = True,
+                 mlp_ratio: float = 4.0, mlp_bias: bool = True, mlp_drop: float = 0.0,
                  action_processing: str = "mlp", num_domains: int = 0,
-                 dtype=torch.bfloat16, device="cuda"):
+                 temporal_layout: str = "transpose", dtype=torch.bfloat16,
+                 device="cuda"):
         super().__init__()
+        if temporal_layout not in ("transpose", "resident"):
+            raise ValueError(f"temporal_layout={temporal_layout!r}")
+        # in either layout (hma_tpu's resident one raises for it too)
         if num_domains > 0 and "cross_attention" in action_processing:
             raise NotImplementedError(
                 "cross_attention action injection is not ported yet "
@@ -57,9 +94,10 @@ class STBlock(nn.Module):
                        dtype=dtype, device=device)
         self.dtype = dtype
         self.action_processing = action_processing
+        self.temporal_layout = temporal_layout
         self.spatial_attn = SelfAttention(**attn_kw)
         self.temporal_attn = SelfAttention(**attn_kw)
-        self.mlp = Mlp(d_model, mlp_ratio, mlp_bias, dtype, device)
+        self.mlp = Mlp(d_model, mlp_ratio, mlp_bias, mlp_drop, dtype, device)
         self.norm1 = None if qk_norm else LayerNorm(d_model, device=device)
         self.norm2 = None if qk_norm else LayerNorm(d_model, device=device)
         self.action_projector = (
@@ -81,17 +119,26 @@ class STBlock(nn.Module):
         return x
 
     def forward(self, x_TSC: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
-                domain_id: int = 0) -> torch.Tensor:
-        """Full forward. x_TSC: (B, T, S, C); action_emb: (B, T, C)."""
+                domain_id: int = 0, dropout: BlockDropout = None) -> torch.Tensor:
+        """Full forward. x_TSC: (B, T, S, C); action_emb: (B, T, C);
+        dropout: the MLP's (`BlockDropout`), masks shaped like its hidden and
+        output activations in this block's layout: (B*S, T, .) for
+        "transpose", (B, T, S, .) for "resident"."""
         B, T, S, C = x_TSC.shape
         x_SC = x_TSC.reshape(B * T, S, C)
         x_SC = x_SC + self.spatial_attn(self._pre(self.norm1, x_SC))
+        if self.temporal_layout == "resident":
+            x = x_SC.reshape(B, T, S, C)
+            if action_emb is not None and self.inject:
+                x = self._inject(x, action_emb[:, :T, None], domain_id)
+            x = x + self.temporal_attn.temporal_resident(x)
+            return x + self.mlp(self._pre(self.norm2, x), dropout)
         x_BSTC = x_SC.reshape(B, T, S, C).transpose(1, 2)  # (B, S, T, C)
         if action_emb is not None and self.inject:
             x_BSTC = self._inject(x_BSTC, action_emb[:, None, :T], domain_id)
         x_TC = x_BSTC.reshape(B * S, T, C)
         x_TC = x_TC + self.temporal_attn(x_TC, causal=True)
-        x_TC = x_TC + self.mlp(self._pre(self.norm2, x_TC))
+        x_TC = x_TC + self.mlp(self._pre(self.norm2, x_TC), dropout)
         return x_TC.reshape(B, S, T, C).transpose(1, 2)
 
     def frame_step(self, x_SC: torch.Tensor, t: int, k_cache: torch.Tensor,
@@ -123,8 +170,11 @@ class STTransformerDecoder(nn.Module):
     With `remat`, each block of a forward that records gradients runs
     under `torch.utils.checkpoint` (non-reentrant): only its input is kept
     and the block is recomputed in the backward (JAX's `nn.remat` with no
-    saveable policy, "full"). The blocks draw no random numbers, so the
-    RNG state is not stashed.
+    saveable policy, "full"). The checkpoint restores only the default
+    CPU and CUDA RNG states, never a `torch.Generator`, so a block draws
+    nothing from one: its dropout seed (or masks) is drawn before the block
+    and handed in, and the recompute draws the same masks from it, as JAX's
+    remat does with its dropout key.
     """
 
     def __init__(self, num_layers: int, remat: bool = False,
@@ -138,14 +188,23 @@ class STTransformerDecoder(nn.Module):
         self.layers = nn.ModuleList(STBlock(**block_kw) for _ in range(num_layers))
 
     def forward(self, x_TSC: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
-                domain_id: int = 0) -> torch.Tensor:
+                domain_id: int = 0,
+                dropout: Union[None, torch.Generator, Sequence[BlockDropout]] = None
+                ) -> torch.Tensor:
+        """dropout: None (deterministic), a generator (one seed per block is
+        drawn from it, on its device, before the blocks run) or one
+        `BlockDropout` per block."""
         remat = self.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        if isinstance(dropout, torch.Generator):
+            dropout = torch.randint(0, 2**62, (len(self.layers),), generator=dropout,
+                                    device=dropout.device).tolist()
+        for i, layer in enumerate(self.layers):
+            drop = None if dropout is None else dropout[i]
             if remat:
-                x_TSC = checkpoint(layer, x_TSC, action_emb, domain_id,
+                x_TSC = checkpoint(layer, x_TSC, action_emb, domain_id, drop,
                                    use_reentrant=False, preserve_rng_state=False)
             else:
-                x_TSC = layer(x_TSC, action_emb, domain_id)
+                x_TSC = layer(x_TSC, action_emb, domain_id, drop)
         return x_TSC
 
     def frame_step(self, x_SC: torch.Tensor, t: int, k_cache: torch.Tensor,

@@ -8,12 +8,14 @@ return value) and is compiled at first use into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
-The library's file name carries a hash of the source and flags, so an
-edited source is rebuilt and a stale library is never loaded. `build_all`
-starts one nvcc per source, all at once. `launch_attention` holds the
-checks and the launch that both attention forward kernels share,
-`launch_attention_bwd` those of both backward kernels, and
-`launch_denoise_loop` the scratch and the launch of the denoise-loop kernel.
+The library's file name carries a hash of the source, of the headers
+(`csrc/*.cuh`) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. `build_all` starts one nvcc per
+source, all at once. `launch_attention` holds the checks and the launch
+that both attention forward kernels share, `launch_attention_bwd` those of
+both backward kernels, `launch_temporal_resident{,_bwd}` those of the
+resident-layout temporal kernel (K5'), and `launch_denoise_loop` the
+scratch and the launch of the denoise-loop kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hma_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("fused_attention_fwd", "fused_attention_bwd",
-           "temporal_attention_fwd", "temporal_attention_bwd", "denoise_loop")
+           "temporal_attention_fwd", "temporal_attention_bwd",
+           "temporal_resident_fwd", "temporal_resident_bwd", "denoise_loop")
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,6 +52,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -88,31 +92,33 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _entry(name: str, n_ptrs: int, n_flags: int, n_strided: int):
-    """The C entry `hma_<name>(*n_ptrs pointers, lead, L, H, D, dtype,
-    *n_flags flags, 3 strides for each of n_strided tensors, stream)` of
-    library `name`."""
+def _entry(name: str, n_ptrs: int, n_ints: int, n_strides: int):
+    """The C entry `hma_<name>(*n_ptrs pointers, *n_ints ints, *n_strides
+    strides, stream)` of library `name`: the attention kernels take (lead,
+    L, H, D, dtype, *flags) or, resident, (B, T, S, H, D, dtype), then the
+    strides of each strided tensor."""
     fn = getattr(library(name), f"hma_{name}")
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * (5 + n_flags)
-                   + [ctypes.c_longlong] * (3 * n_strided) + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_longlong] * n_strides + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name: str, tensors, max_len: int) -> None:
-    """Raise unless `tensors` are (lead, L, H, D) of one shape and dtype
-    (fp32 or bf16) on one device, with D in HEAD_DIMS, 0 < L <= max_len,
-    lead > 0 and a unit stride on D."""
+def _check(name: str, tensors, max_len: int, ndim: int = 4) -> None:
+    """Raise unless `tensors` are (lead, L, H, D), or with ndim 5 the
+    resident kernel's (B, L, S, H, D), of one shape and dtype (fp32 or bf16)
+    on one device, with D in HEAD_DIMS, 0 < L <= max_len, no empty axis and
+    a unit stride on D."""
     q = tensors[0]
-    lead, L, H, D = q.shape
-    if any(t.shape != q.shape for t in tensors):
+    if any(t.shape != q.shape for t in tensors) or q.ndim != ndim:
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")
-    if D not in HEAD_DIMS or not 0 < L <= max_len or lead == 0:
+    L, D = q.shape[1], q.shape[-1]
+    if D not in HEAD_DIMS or not 0 < L <= max_len or q.numel() == 0:
         raise ValueError(f"{name}: needs D in {HEAD_DIMS}, 0 < L <= {max_len} "
-                         f"and lead > 0, got {q.shape}")
-    if any(t.device != q.device or t.stride(3) != 1 for t in tensors):
+                         f"and no empty axis, got {q.shape}")
+    if any(t.device != q.device or t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name}: inputs must share a device and have a "
                          "unit stride on D")
 
@@ -130,7 +136,7 @@ def launch_attention(name: str, q: torch.Tensor, k: torch.Tensor,
     out = torch.empty(lead, L, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(lead, H, L, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    status = _entry(name, 5, len(flags), 3)(
+    status = _entry(name, 5, 5 + len(flags), 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         lead, L, H, D, _DTYPE_CODE[q.dtype], *flags, *strides,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -162,7 +168,7 @@ def launch_attention_bwd(name: str, q: torch.Tensor, k: torch.Tensor,
     scratch = (torch.empty(lead, H, L, dtype=torch.float32, device=q.device)
                if delta else None)
     strides = [s for t in (q, k, v, out, dout) for s in t.stride()[:3]]
-    status = _entry(name, 10, len(flags), 5)(
+    status = _entry(name, 10, 5 + len(flags), 15)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), *(g.data_ptr() for g in grads),
         None if scratch is None else scratch.data_ptr(),
@@ -171,6 +177,52 @@ def launch_attention_bwd(name: str, q: torch.Tensor, k: torch.Tensor,
     if status != 0:
         raise RuntimeError(f"{name} launch: CUDA error {status}")
     return tuple(grads)
+
+
+def launch_temporal_resident(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             max_len: int):
+    """Launch K5''s forward on CUDA tensors q, k, v, (B, T, S, H, D) as
+    `_check` takes them, any strides on the first four axes.
+    Raises on anything else or when the launch fails. Returns (out
+    (B, T, S, H, D) contiguous, lse (B*S, H, T) fp32)."""
+    name = "temporal_resident_fwd"
+    _check(name, (q, k, v), max_len, ndim=5)
+    B, T, S, H, D = q.shape
+    out = torch.empty(B, T, S, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B * S, H, T, dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v) for s in t.stride()[:4]]
+    status = _entry(name, 5, 6, 12)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, T, S, H, D, _DTYPE_CODE[q.dtype], *strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{name} launch: CUDA error {status}")
+    return out, lse
+
+
+def launch_temporal_resident_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 out: torch.Tensor, lse: torch.Tensor,
+                                 dout: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Launch K5''s backward on CUDA tensors: q, k, v, out, dout (B, T, S, H,
+    D) as `_check` takes them, lse (B*S, H, T) fp32 as the forward
+    wrote it. Raises on anything else or when the launch fails. Returns dq,
+    dk and dv as the three slots of one contiguous (B, T, S, 3, H, D)."""
+    name = "temporal_resident_bwd"
+    _check(name, (q, k, v, out, dout), max_len, ndim=5)
+    B, T, S, H, D = q.shape
+    if (lse.shape != (B * S, H, T) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"{name}: lse must be contiguous fp32 {(B * S, H, T)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    dqkv = torch.empty(B, T, S, 3, H, D, dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v, out, dout) for s in t.stride()[:4]]
+    status = _entry(name, 7, 6, 20)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        dout.data_ptr(), dqkv.data_ptr(), B, T, S, H, D, _DTYPE_CODE[q.dtype],
+        *strides, torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{name} launch: CUDA error {status}")
+    return dqkv
 
 
 @functools.cache

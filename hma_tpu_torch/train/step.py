@@ -12,7 +12,16 @@ package's optax chain number for number:
   - the NaN guard: a non-finite loss or grad norm zeroes the grads (the
     moments still decay and the counts still advance, which is why this
     is not `torch.optim.AdamW`) and applies no update;
-  - grad accumulation over `microbatch` chunks.
+  - grad accumulation over `microbatch` chunks;
+  - one step for both families (`continuous=True`: STMAR's diffusion loss
+    with `masked_tokens_indicator`, plus `action_loss_weight` times the
+    action head's loss on joint cards).
+
+Random draws: a step takes an integer `rng`, as `hma_tpu`'s takes a key.
+From it each (micro)batch gets two generators: one on the model's device
+for the diffusion timesteps and noise and the action-suffix start, and one
+on the CPU for the trunk's dropout seeds (one per block, so drawing them
+never waits for the card). The tests hand the draws in instead (`draws`).
 
 Parameters, moments and grads are fp32 and are updated in place. The
 stacked tables' grads arrive full-size from autograd and are read at row
@@ -25,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -219,30 +229,68 @@ def make_domain_sliced_optimizer(model: nn.Module, learning_rate,
                              num_domains=num_domains)
 
 
-def _loss(model: nn.Module, batch: dict):
-    out = model(batch["input_ids"], batch["labels"], batch.get("action_ids"),
-                batch.get("domain_id", 0))
-    return out["loss"], {"loss": out["loss"].detach(), "acc": out["acc"].detach()}
+def generators(rng: int, part: int, device) -> tuple:
+    """(device generator, CPU generator) of (micro)batch `part` of the step
+    keyed by `rng`: seeds from numpy's SeedSequence of (rng, part)."""
+    a, b = np.random.SeedSequence([int(rng), int(part)]).generate_state(2, np.uint64)
+    return (torch.Generator(device).manual_seed(int(a) >> 1),
+            torch.Generator("cpu").manual_seed(int(b) >> 1))
 
 
-def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0) -> Callable:
-    """train_step(batch) -> metrics, updating the model and `tx` in place.
+def _loss(model: nn.Module, batch: dict, continuous: bool, action_loss_weight: float,
+          generator=None, dropout=None, draws=None):
+    """(loss to differentiate, detached metrics) of one (micro)batch."""
+    args = (batch["input_ids"], batch["labels"], batch.get("action_ids"),
+            batch.get("domain_id", 0))
+    if continuous:
+        out = model(*args, batch["masked_tokens_indicator"], generator=generator,
+                    dropout=dropout, draws=draws)
+    else:
+        out = model(*args, dropout=dropout)
+    loss = out["loss"]
+    metrics = {"loss": out["loss"].detach(), "acc": out["acc"].detach()}
+    if "action_loss" in out:
+        loss = loss + action_loss_weight * out["action_loss"]
+        metrics["action_loss"] = out["action_loss"].detach()
+    return loss, metrics
 
-    batch: input_ids/labels (B, T, S) int, optional action_ids (B, T,
-    max_d_action) fp32, domain_id int. With microbatch > 0 the batch runs
-    in B // microbatch chunks whose grads (and metrics) are averaged.
-    Metrics: 0-d tensors loss, acc, grad_norm and skipped (1.0 when the
-    NaN guard dropped the update).
+
+def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
+                    continuous: bool = False, action_loss_weight: float = 0.5
+                    ) -> Callable:
+    """train_step(batch, rng=0, draws=None) -> metrics, updating the model and
+    `tx` in place.
+
+    batch: input_ids/labels (B, T, S) int (discrete) or (B, T, h, w, C)
+    fp32 latents and masked_tokens_indicator (B, T, h, w) (continuous),
+    optional action_ids (B, T, max_d_action) fp32, domain_id int. With
+    microbatch > 0 the batch runs in B // microbatch chunks whose grads (and
+    metrics) are averaged. The forward trains (MLP dropout on); its draws
+    come from `generators(rng, i)` for chunk i, or, with no microbatches,
+    from `draws` where given (the model's `draws`, plus "dropout": one
+    `BlockDropout` per block). Metrics: 0-d tensors loss, acc (and
+    action_loss on joint cards), grad_norm and skipped (1.0 when the NaN
+    guard dropped the update).
     """
     params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
 
-    def train_step(batch: dict) -> dict:
+    def loss_of(chunk: dict, part: int, rng: int, draws: Optional[dict]):
+        gen, dropout = generators(rng, part, device)
+        draws = dict(draws or {})
+        dropout = draws.pop("dropout", dropout)
+        return _loss(model, chunk, continuous, action_loss_weight, gen, dropout,
+                     draws if continuous else None)
+
+    def train_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
         for p in params.values():
             p.grad = None
         if microbatch <= 0:
-            loss, metrics = _loss(model, batch)
+            loss, metrics = loss_of(batch, 0, rng, draws)
             loss.backward()
         else:
+            if draws:
+                raise ValueError("draws are handed in for a whole batch only")
             B = batch["input_ids"].shape[0]
             n = B // microbatch
             metrics = {}
@@ -250,7 +298,7 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0) -> Call
                 chunk = {k: (v[i * microbatch:(i + 1) * microbatch]
                              if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == B
                              else v) for k, v in batch.items()}
-                loss, m = _loss(model, chunk)
+                loss, m = loss_of(chunk, i, rng, None)
                 loss.backward()
                 metrics = {k: metrics.get(k, 0) + v for k, v in m.items()}
             for p in params.values():
@@ -270,12 +318,19 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0) -> Call
     return train_step
 
 
-def make_eval_step(model: nn.Module) -> Callable:
-    """eval_step(batch) -> {loss, acc, perplexity}, teacher-forced, no grad."""
+def make_eval_step(model: nn.Module, *, continuous: bool = False,
+                   action_loss_weight: float = 0.5) -> Callable:
+    """eval_step(batch, rng=0, draws=None) -> {loss, acc, perplexity} (and
+    action_loss on joint cards): teacher-forced, deterministic (no dropout),
+    no grad; the continuous family's diffusion draws come from
+    `generators(rng, 0)` (so they differ between eval batches) or `draws`."""
+    device = next(model.parameters()).device
 
     @torch.no_grad()
-    def eval_step(batch: dict) -> dict:
-        _, metrics = _loss(model, batch)
+    def eval_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
+        gen = generators(rng, 0, device)[0]
+        _, metrics = _loss(model, batch, continuous, action_loss_weight, gen, None,
+                           draws if continuous else None)
         return {**metrics, "perplexity": torch.exp(metrics["loss"])}
 
     return eval_step

@@ -1,17 +1,19 @@
 """Multi-dataset training loop (counterpart of hma_tpu/train/trainer.py).
 
-The discrete family on one device: per-domain memmap datasets from a
-datasplit file, temperature-weighted batch sampling, the training step of
+Both families on one device: per-domain memmap datasets from a datasplit
+file (`{domain}_magvit_max1000000_{split}` token sets for the discrete
+STMaskGIT, `{domain}_vae_max1000000_{split}` latent sets for the continuous
+STMAR), temperature-weighted batch sampling, the training step of
 `train/step.py`, periodic teacher-forced eval, a token-match rollout eval
-and checkpointing with bit-exact resume (the sampler position is replayed
-and each step's collate RNG is derived from (seed, step)). The model runs
-in bf16 on the card and in fp32 on the CPU; parameters and optimizer
-state are fp32 on both.
+(discrete only, as in `hma_tpu`) and checkpointing with bit-exact resume
+(the sampler position is replayed, each step's collate RNG is derived from
+(seed, step) and its training draws from the step number). The model runs
+in bf16 on the card and in fp32 on the CPU; parameters and optimizer state
+are fp32 on both.
 
-Not ported (they raise): the continuous family, the mesh and multi-host,
-the native loader, the tokenizer/LPIPS pixel visualisation, muP, bf16
-moments, JAX's `sliced_grads` lever and schedules other than
-"custom_cosine".
+Not ported (they raise): the mesh and multi-host, the native loader, the
+tokenizer/LPIPS pixel visualisation, muP, bf16 moments, JAX's
+`sliced_grads` lever and schedules other than "custom_cosine".
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ import numpy as np
 import torch
 
 from hma_tpu_torch import resolve_device
-from hma_tpu_torch.config import GenieConfig, load_config
-from hma_tpu_torch.data.collators import maskgit_collate
-from hma_tpu_torch.data.datasets import RawTokenDataset
+from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig, load_config
+from hma_tpu_torch.data.collators import maskgit_collate, maskgit_collate_feature
+from hma_tpu_torch.data.datasets import RawFeatureDataset, RawTokenDataset
 from hma_tpu_torch.data.sampler import MultiTaskBatchSampler
+from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
 from hma_tpu_torch.rollout.maskgit import generate_tokens
 from hma_tpu_torch.train.step import (
@@ -60,7 +63,7 @@ class TrainArgs:
     output_dir: str = "out"
     train_split: str = "experiments/datasplit/dataset1.yaml"
     data_root: str = "data"
-    model_type: str = "discrete"  # discrete | continuous (not ported)
+    model_type: str = "discrete"  # discrete | continuous
     window_size: int = 12
     stride: int = 1
     filter_overlaps: bool = False
@@ -110,8 +113,9 @@ class TrainArgs:
 
 
 def _refuse_unported(args: TrainArgs) -> None:
+    if args.model_type not in ("discrete", "continuous"):
+        raise ValueError(f"--model_type {args.model_type}")
     unported = {
-        "--model_type continuous (the STMAR family)": args.model_type != "discrete",
         "a device mesh (--dp/--fsdp/--tp/--sp)":
             (args.dp or 1) * args.fsdp * args.tp * args.sp > 1,
         "--use_native_loader": args.use_native_loader,
@@ -146,20 +150,31 @@ def read_domains(path: str) -> list[str]:
 
 
 def build_domain_datasets(args: TrainArgs, config: GenieConfig):
-    """Per-domain train/val datasets and the shared metadata."""
+    """Per-domain train/val datasets and the shared metadata: token sets
+    for the discrete family, latent sets for the continuous one."""
     domains = read_domains(args.train_split)
-    fmt = "{root}/{domain}_magvit_max1000000_{split}"
+    discrete = args.model_type == "discrete"
+    fmt = ("{root}/{domain}_magvit_max1000000_{split}" if discrete
+           else "{root}/{domain}_vae_max1000000_{split}")
+    shared_keys = (("s", "h", "w", "vocab_size") if discrete
+                   else ("s", "h", "w", "latent_channels"))
     kwargs = dict(window_size=args.window_size, stride=args.stride,
                   max_traj_num=args.num_episodes_per_dataset,
                   use_actions=config.use_actions)
     if config.drop_action_ratio:
         kwargs["drop_action_ratio"] = config.drop_action_ratio
+
+    def dataset(domain, split, filter_overlaps):
+        path = fmt.format(root=args.data_root, domain=domain, split=split)
+        if discrete:
+            return RawTokenDataset(path, filter_overlaps=filter_overlaps, name=domain,
+                                   **kwargs)
+        return RawFeatureDataset(path, filter_overlaps=filter_overlaps, domain=domain,
+                                 **kwargs)
+
     train_sets, val_sets, action_dims, action_stats = [], [], [], []
     for domain in domains:
-        tds = RawTokenDataset(fmt.format(root=args.data_root, domain=domain,
-                                         split="train"),
-                              filter_overlaps=args.filter_overlaps, name=domain,
-                              **kwargs)
+        tds = dataset(domain, "train", args.filter_overlaps)
         train_sets.append(tds)
         action_dims.append(tds.n_action)
         if config.use_actions:
@@ -167,11 +182,9 @@ def build_domain_datasets(args: TrainArgs, config: GenieConfig):
         if args.overfit_first_batch:
             val_sets.append(tds)  # truncated to one batch in run_training
         else:
-            val_sets.append(RawTokenDataset(
-                fmt.format(root=args.data_root, domain=domain, split="val"),
-                filter_overlaps=True, name=domain, **kwargs))
+            val_sets.append(dataset(domain, "val", True))
     meta = train_sets[0].metadata
-    shared = {k: meta[k] for k in ("s", "h", "w", "vocab_size") if k in meta}
+    shared = {k: meta[k] for k in shared_keys if k in meta}
     return domains, train_sets, val_sets, action_dims, action_stats, shared
 
 
@@ -183,6 +196,8 @@ def configure_model(args: TrainArgs, config: GenieConfig, domains, action_dims,
         config.image_vocab_size = shared_metadata["vocab_size"]
     config.T = args.window_size
     config.S = shared_metadata["h"] * shared_metadata["w"]
+    if args.model_type == "continuous":
+        config.vae_embed_dim = shared_metadata["latent_channels"]
     if args.action_network is not None:
         config.action_network = args.action_network
     if config.use_actions:
@@ -202,16 +217,19 @@ def _pad_actions(a: np.ndarray, width: int) -> np.ndarray:
 
 
 class BatchAssembler:
-    """Sampler indices -> collated batch of tensors on `device`."""
+    """Sampler indices -> collated batch of tensors on `device`: (B, T, S)
+    token ids, or (B, T, h, w, C) latents and their
+    `masked_tokens_indicator` when `discrete` is False."""
 
     def __init__(self, datasets, config: GenieConfig, seed: int, device,
-                 rng: np.random.Generator):
+                 rng: np.random.Generator, discrete: bool = True):
         self.datasets = datasets
         self.offsets = np.cumsum([0] + [len(d) for d in datasets[:-1]])
         self.config = config
         self.seed = seed
         self.device = device
         self.rng = rng
+        self.discrete = discrete
 
     def __call__(self, global_indices: np.ndarray, step: Optional[int] = None) -> dict:
         """A training call passes `step`: the collate RNG is then derived
@@ -221,11 +239,19 @@ class BatchAssembler:
         items = [self.datasets[ds_idx][int(i)]
                  for i in global_indices - self.offsets[ds_idx]]
         rng = self.rng if step is None else np.random.default_rng([self.seed, int(step)])
-        batch = maskgit_collate(items, self.config, rng)
+        collate = maskgit_collate if self.discrete else maskgit_collate_feature
+        batch = collate(items, self.config, rng)
         B, T = len(items), self.config.T
-        hw = batch["h"][0] * batch["w"][0]
-        out = {k: torch.from_numpy(batch[k].reshape(B, T, hw).astype(np.int64))
-               .to(self.device) for k in ("input_ids", "labels")}
+        h, w = batch["h"][0], batch["w"][0]
+        if self.discrete:
+            out = {k: torch.from_numpy(batch[k].reshape(B, T, h * w).astype(np.int64))
+                   .to(self.device) for k in ("input_ids", "labels")}
+        else:
+            C = batch["input_ids"].shape[-1]
+            out = {k: torch.from_numpy(batch[k].reshape(B, T, h, w, C)).to(self.device)
+                   for k in ("input_ids", "labels")}
+            out["masked_tokens_indicator"] = torch.from_numpy(
+                batch["masked_tokens_indicator"]).to(self.device)
         if "action_ids" in batch:
             out["action_ids"] = torch.from_numpy(_pad_actions(
                 batch["action_ids"], self.config.max_d_action)).to(self.device)
@@ -233,15 +259,16 @@ class BatchAssembler:
         return out
 
 
-def stacked_param_mask(model: STMaskGIT, config: GenieConfig) -> dict[str, bool]:
-    """The same model with one more domain, built on the meta device: the
-    parameters whose shapes change are the domain-stacked tables."""
+def stacked_param_mask(model, config: GenieConfig) -> dict[str, bool]:
+    """The same model (its own class: STMaskGIT or STMAR) with one more
+    domain, built on the meta device: the parameters whose shapes change are
+    the domain-stacked tables."""
     alt = copy.deepcopy(config)
     alt.action_domains = list(config.action_domains) + ["__probe__"]
     alt.d_actions = list(config.d_actions) + [config.d_actions[-1]]
     if config.action_stats:
         alt.action_stats = list(config.action_stats) + [config.action_stats[-1]]
-    return domain_stacked_mask(model, STMaskGIT(alt, dtype=model.dtype, device="meta"))
+    return domain_stacked_mask(model, type(model)(alt, dtype=model.dtype, device="meta"))
 
 
 def run_training(args: TrainArgs) -> dict:
@@ -250,6 +277,10 @@ def run_training(args: TrainArgs) -> dict:
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     config = load_config(args.genie_config)
+    continuous = args.model_type == "continuous"
+    if continuous and not isinstance(config, DiffusionGenieConfig):
+        config = DiffusionGenieConfig(**{f.name: getattr(config, f.name)
+                                         for f in dataclasses.fields(GenieConfig)})
     domains, train_sets, val_sets, action_dims, action_stats, shared = (
         build_domain_datasets(args, config))
     config = configure_model(args, config, domains, action_dims, action_stats, shared)
@@ -269,13 +300,14 @@ def run_training(args: TrainArgs) -> dict:
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
     schedule = custom_cosine_schedule(lr, args.num_warmup_steps, max_steps)
     assembler = BatchAssembler(train_sets, config, args.seed, device,
-                               np.random.default_rng(args.seed))
+                               np.random.default_rng(args.seed), not continuous)
     val_assembler = BatchAssembler(val_sets, config, args.seed, device,
-                                   np.random.default_rng(0))
+                                   np.random.default_rng(0), not continuous)
 
-    model = STMaskGIT(config, dtype=dtype, device=device,
-                      generator=torch.Generator(device).manual_seed(args.seed),
-                      remat=args.grad_checkpointing)
+    model = (STMAR if continuous else STMaskGIT)(
+        config, dtype=dtype, device=device,
+        generator=torch.Generator(device).manual_seed(args.seed),
+        remat=args.grad_checkpointing)
     opt_kw = dict(learning_rate=schedule, weight_decay=args.weight_decay,
                   beta1=args.adam_beta_1, beta2=args.adam_beta_2, eps=args.adam_eps,
                   max_grad_norm=args.max_grad_norm)
@@ -296,8 +328,9 @@ def run_training(args: TrainArgs) -> dict:
         tx.load_state_dict(opt_state)
 
     microbatch = B if args.gradient_accumulation_steps > 1 else 0
-    train_step = make_train_step(model, tx, microbatch=microbatch)
-    eval_step = make_eval_step(model)
+    step_kw = dict(continuous=continuous, action_loss_weight=config.action_loss_weight)
+    train_step = make_train_step(model, tx, microbatch=microbatch, **step_kw)
+    eval_step = make_eval_step(model, **step_kw)
 
     n_params = sum(p.numel() for p in model.parameters())
     exp_config = {**dataclasses.asdict(args), **{
@@ -331,7 +364,9 @@ def run_training(args: TrainArgs) -> dict:
                 if skip > 0:
                     skip -= 1
                     continue
-                metrics = train_step(assembler(indices, step=step_i))
+                # the step's draws are keyed by its number, as hma_tpu's
+                # PRNGKey(step): a resumed run draws what a straight one does
+                metrics = train_step(assembler(indices, step=step_i), rng=step_i)
                 step_i += 1
 
                 if step_i % args.log_every == 0 or step_i == max_steps:
@@ -361,7 +396,7 @@ def run_training(args: TrainArgs) -> dict:
                         step=step_i)
 
                 if (args.vis_every_n_steps and step_i % args.vis_every_n_steps == 0
-                        and step_i < max_steps):
+                        and step_i < max_steps and not continuous):
                     logger.log({f"vis/{k}": v for k, v in rollout_eval(
                         model, val_assembler, val_sets, args, config).items()},
                         step=step_i)
@@ -388,9 +423,10 @@ def run_eval(eval_step, val_assembler: BatchAssembler, val_sets,
     for i, indices in enumerate(sampler):
         if i >= args.max_eval_steps:
             break
-        out = eval_step(val_assembler(indices))
-        for k in ("loss", "acc"):
-            sums[k] = sums.get(k, 0.0) + float(out[k])
+        out = eval_step(val_assembler(indices), rng=i)
+        for k in ("loss", "acc", "action_loss"):
+            if k in out:
+                sums[k] = sums.get(k, 0.0) + float(out[k])
         n += 1
     out = {k: v / max(n, 1) for k, v in sums.items()}
     if "loss" in out:

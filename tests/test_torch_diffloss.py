@@ -98,9 +98,21 @@ def test_cfg_halves_share_noise_and_eps():
 
 
 def test_loss_is_not_ported_and_says_where():
-    _, _, tm, _ = build(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss(None, None)
+    """The training loss runs (held to hma_tpu's in
+    tests/test_torch_stmar_train.py): its draws repeat with the generator's
+    seed, and rows of mask 0 do not count."""
+    _, _, tm, z = build(0)
+    rng = np.random.default_rng(3)
+    target = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32))
+    mask = torch.tensor([1.0, 1.0, 0.0, 1.0, 0.0, 1.0])
+    zz = torch.from_numpy(z)
+    with torch.no_grad():
+        a, b = (tm.loss(target, zz, mask, generator=torch.Generator().manual_seed(1))
+                for _ in range(2))
+        moved = target.clone()
+        moved[mask == 0] += 5.0
+        c = tm.loss(moved, zz, mask, generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(a) and a.item() == b.item() == c.item()
 
 
 def test_reset_parameters_zeroes_adaln_and_final_like_jax():

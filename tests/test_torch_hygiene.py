@@ -1,7 +1,9 @@
 """The port stands alone: no file of hma_tpu_torch/ or chip_smoke.py imports
-JAX, optax, flax or hma_tpu (the collator, sampler and logger are the port's
-own copies), importing the port leaves JAX unloaded, and an entry point with
-no device on a host without a card raises instead of using the CPU."""
+JAX, optax, flax or hma_tpu (the collators, sampler and logger are the port's
+own copies), importing the port leaves JAX unloaded, an entry point with no
+device on a host without a card raises instead of using the CPU, and the
+build compiles every CUDA source under csrc/, K5''s resident entries
+among them."""
 
 import ast
 import subprocess
@@ -36,7 +38,9 @@ def test_port_files_import_no_jax_or_hma_tpu():
             "hma_tpu_torch/data/sampler.py", "hma_tpu_torch/utils/logging.py",
             "hma_tpu_torch/diffusion/gaussian.py", "hma_tpu_torch/models/diffloss.py",
             "hma_tpu_torch/models/st_mar.py", "hma_tpu_torch/rollout/mar.py",
-            "hma_tpu_torch/ops/diffusion_sampler.py"} <= names
+            "hma_tpu_torch/ops/diffusion_sampler.py", "hma_tpu_torch/ops/temporal_attention.py",
+            "hma_tpu_torch/ops/_build.py", "hma_tpu_torch/models/st_transformer.py",
+            "hma_tpu_torch/models/attention.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -64,3 +68,15 @@ def test_entry_point_without_device_raises_on_cpu_host(monkeypatch, tmp_path):
         train_main(["--genie_config", str(tmp_path / "c.json"),
                     "--output_dir", str(tmp_path / "run")])
     assert hma_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_lists_every_cuda_source():
+    from hma_tpu_torch.ops import _build
+
+    sources = {f.stem for f in (ROOT / "hma_tpu_torch" / "csrc").glob("*.cu")}
+    assert set(_build.SOURCES) == sources
+    assert {"temporal_resident_fwd", "temporal_resident_bwd"} <= sources
+    # a header edit changes every library name that includes it
+    assert (ROOT / "hma_tpu_torch" / "csrc" / "temporal_attention.cuh").is_file()
+    for name in sources:
+        assert _build._target(name).name.startswith(f"lib{name}-")

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, at the main path's
 shapes and one ragged shape each, fp32 and bf16: K1' and K3' (forward: out
 and lse), K2' and K4' (backward: dq, dk, dv from the same out, lse and a
-strided dout), the autograd.Functions' launches, and K6' (the fused
-denoise loop). Marked gpu: they need a card and skip elsewhere. This file imports no JAX, so on a machine
+strided dout), the autograd.Functions' launches, K5' (the resident
+layout's forward and backward, against the plain version and bit for bit
+against K3'/K4' on the same values regrouped), K6' (the fused denoise loop),
+and the MLP dropout under remat on the card. Marked gpu: they need a card and skip elsewhere. This file imports no JAX, so on a machine
 without it run it alone, without the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
@@ -28,10 +30,15 @@ from hma_tpu_torch.ops.fused_attention import (
 )
 from hma_tpu_torch.ops.temporal_attention import (
     FusedTemporalAttention,
+    FusedTemporalResident,
     fused_temporal_attention,
     fused_temporal_attention_bwd,
     fused_temporal_attention_bwd_plain,
     fused_temporal_attention_plain,
+    fused_temporal_attention_resident,
+    fused_temporal_attention_resident_bwd,
+    temporal_resident_bwd_plain,
+    temporal_resident_plain,
 )
 
 # Backward limits on dq, dk, dv against the plain version, as chip_smoke.py
@@ -155,6 +162,136 @@ def test_autograd_function_launches_fwd_and_bwd_kernels(temporal):
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (1, 1)
     assert qkv.grad is not None and torch.isfinite(qkv.grad).all()
+
+
+def _resident_qkv(shape, dtype, seed):
+    """q (scaled, contiguous), k, v (views) as FusedTemporalResident hands
+    them to K5': from one (B, T, S, 3, H, D) projection."""
+    B, T, S, H, D = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    qkv = torch.randn(B, T, S, 3, H, D, generator=g, device="cuda").to(dtype)
+    return qkv[..., 0, :, :] * 0.2, qkv[..., 1, :, :], qkv[..., 2, :, :]
+
+
+RESIDENT_SHAPES = [(8, 12, 128, 8, 64), (3, 5, 7, 3, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", RESIDENT_SHAPES)
+def test_resident_kernel_matches_plain(dtype, tol, shape):
+    _need_card()
+    q, k, v = _resident_qkv(shape, dtype, seed=6)
+    out, lse = fused_temporal_attention_resident(q, k, v)
+    assert out.is_contiguous() and out.shape == q.shape
+    _assert_matches(out, lse, *temporal_resident_plain(q, k, v), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RESIDENT_SHAPES)
+def test_resident_bwd_kernel_matches_plain(dtype, shape):
+    _need_card()
+    q, k, v = _resident_qkv(shape, dtype, seed=7)
+    out, lse = fused_temporal_attention_resident(q, k, v)
+    dout = torch.randn(*shape[:3], 2, *shape[3:], device="cuda").to(dtype)[..., 0, :, :]
+    got = fused_temporal_attention_resident_bwd(q, k, v, out, lse, dout)
+    want = temporal_resident_bwd_plain(q, k, v, out, lse, dout)
+    assert got.is_contiguous() and got.shape == (*shape[:3], 3, *shape[3:])
+    tol = BWD_FP32_TOL if dtype == torch.float32 else BWD_BF16_TOL["K4'"]
+    _assert_grads_match([g.contiguous() for g in got.unbind(3)],
+                        [w.contiguous() for w in want.unbind(3)], tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_kernel_equals_transposed_kernels_bit_for_bit(dtype):
+    """K5' shares K3'/K4''s warp body: on the same values regrouped to
+    (B*S, T, H, D) it gives the same out, lse, dq, dk and dv, bit for bit."""
+    _need_card()
+    B, T, S, H, D = RESIDENT_SHAPES[0]
+    q, k, v = _resident_qkv(RESIDENT_SHAPES[0], dtype, seed=8)
+    dout = torch.randn(B, T, S, H, D, device="cuda").to(dtype)
+    sites = [x.transpose(1, 2).reshape(B * S, T, H, D) for x in (q, k, v, dout)]
+    out, lse = fused_temporal_attention_resident(q, k, v)
+    out3, lse3 = fused_temporal_attention(*sites[:3])
+    assert torch.equal(out.transpose(1, 2).reshape(B * S, T, H, D), out3)
+    assert torch.equal(lse, lse3)
+    dqkv = fused_temporal_attention_resident_bwd(q, k, v, out, lse, dout)
+    grads3 = fused_temporal_attention_bwd(*sites[:3], out3, lse3, sites[3])
+    for g, g3 in zip(dqkv.unbind(3), grads3):
+        assert torch.equal(g.transpose(1, 2).reshape(B * S, T, H, D), g3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("normed", [False, True])
+def test_resident_function_launches_k5_and_hands_qkv_its_gradient(normed):
+    """FusedTemporalResident launches K5''s forward and backward once each,
+    and its qkv gradient (and q's and k's under qk_norm) equals the plain
+    version's through autograd."""
+    _need_card()
+    B, T, S, H, D = 2, 12, 16, 8, 64
+    grads = []
+    for device in ("cuda", "cpu"):
+        g = torch.Generator().manual_seed(9)
+        qkv = torch.randn(B, T, S, 3, H, D, generator=g).to(device).requires_grad_(True)
+        qk = ([x.detach().clone().requires_grad_(True) for x in qkv.unbind(3)[:2]]
+              if normed else [None, None])
+        fused_temporal_attention_resident.launches = 0
+        fused_temporal_attention_resident_bwd.launches = 0
+        out = FusedTemporalResident.apply(qkv, 0.125, *qk)
+        out.square().sum().backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert (fused_temporal_attention_resident.launches,
+                    fused_temporal_attention_resident_bwd.launches) == (1, 1)
+        grads.append([x.grad.cpu() for x in [qkv, *qk] if x is not None])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["transpose", "resident"])
+def test_dropout_masks_are_redrawn_alike_under_remat_on_the_card(layout):
+    """A training forward with MLP dropout draws its per-block masks from
+    seeds taken before each block, so remat's recompute on the card draws
+    the same masks: the grads with remat equal those without, while another
+    dropout seed moves them."""
+    _need_card()
+    from hma_tpu_torch.config import DiffusionGenieConfig
+    from hma_tpu_torch.models.st_mar import STMAR
+
+    cfg = DiffusionGenieConfig(
+        num_layers=2, num_heads=2, d_model=64, T=4, S=16, vae_embed_dim=4,
+        patch_size=2, diffloss_d=2, diffloss_w=128, action_token_size=8,
+        action_network="concat+modulate", use_actions=True, action_domains=["a"],
+        d_actions=[4], action_stats=[[[0.1, -0.2], [1.5, 0.5]]], qk_norm=False,
+        mlp_drop=0.3)
+    g = torch.Generator().manual_seed(0)
+    lat = torch.randn(2, 4, 4, 4, 4, generator=g).cuda()
+    actions = torch.randn(2, 4, 4, generator=g).cuda()
+    mask = (torch.rand(2, 4, 4, 4, generator=g) < 0.5).int().cuda()
+    draws = {"t": torch.randint(0, 1000, (8 * 4,), generator=g).cuda(),
+             "noise": torch.randn(8 * 4, 16, generator=g).cuda()}
+    base = STMAR(cfg, dtype=torch.float32, device="cpu", generator=g)
+    with torch.no_grad():  # wake the zero-init heads, so the trunk gets grads
+        for prm in base.parameters():
+            prm.add_(0.02 * torch.randn(prm.shape, generator=g))
+    grads = []
+    for remat, seed in ((False, 1), (True, 1), (True, 2)):
+        model = STMAR(cfg, dtype=torch.float32, device="cuda", remat=remat,
+                      temporal_layout=layout)
+        model.load_state_dict(base.state_dict())
+        out = model(lat, lat, actions, 0, mask, dropout=torch.Generator().manual_seed(seed),
+                    draws=draws)
+        out["loss"].backward()
+        grads.append({n: p.grad for n, p in model.named_parameters() if p.grad is not None})
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], atol=1e-6, rtol=1e-5, msg=n)
+    # another seed moves the grads ten times past that limit at least
+    moved = max((grads[2][n] - grads[0][n]).abs().max().item() for n in grads[0])
+    scale = max(g.abs().max().item() for g in grads[0].values())
+    assert moved > 10 * (1e-6 + 1e-5 * scale)
 
 
 # K6' against its plain version, max |x - plain| / max |plain| after all K

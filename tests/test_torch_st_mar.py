@@ -148,8 +148,11 @@ def test_card_loads_as_diffusion_config_and_forward_is_not_ported(pair, tmp_path
     cfg = load_config(str(path))
     assert isinstance(cfg, DiffusionGenieConfig) and cfg == tm.config
     assert cfg.maskgit_steps == 3 and cfg.mar_sampling_compat == "mar"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(None, None)
+    # the training forward runs (tests/test_torch_stmar_train.py holds it to
+    # hma_tpu's) and, as hma_tpu's, wants the mask indicator
+    lat = to_torch(pair[3])
+    with pytest.raises(ValueError, match="masked_tokens_indicator"):
+        tm(lat, lat)
 
 
 def test_random_init_is_finite_and_zero_where_jax_is():

@@ -3,7 +3,10 @@ identical to hma_tpu's for the same seed; `python -m hma_tpu_torch.train_multi`
 (`main`, `--device cpu`) trains a tiny card on a synthetic two-domain
 dataset (the domain-sliced AdamW), checkpoints, and a resumed run ends
 bit-for-bit where a straight run does; the final checkpoint rolls out
-through `hma_tpu_torch.generate`; the NaN-streak abort fires."""
+through `hma_tpu_torch.generate`; the NaN-streak abort fires. The same for
+the continuous family (`--model_type continuous`, a latent dataset, the
+tiny STMAR card with mlp_drop 0.1), whose checkpoint rolls out through
+`generate --use_feature`."""
 
 import json
 from pathlib import Path
@@ -16,7 +19,7 @@ import yaml
 from hma_tpu.config import GenieConfig as JaxGenieConfig
 from hma_tpu.data.collators import maskgit_collate as jax_collate
 from hma_tpu.data.sampler import MultiTaskBatchSampler as JaxSampler
-from hma_tpu_torch.config import GenieConfig
+from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig
 from hma_tpu_torch.data.collators import maskgit_collate
 from hma_tpu_torch.data.datasets import write_token_dataset
 from hma_tpu_torch.data.sampler import MultiTaskBatchSampler
@@ -163,16 +166,16 @@ def test_resume_equals_straight_run(synth_env):
 def test_nan_streak_aborts_and_unported_flags_raise(synth_env, monkeypatch):
     root, data = synth_env
 
-    def always_skipped(model, tx, microbatch=0):
-        def step(batch):
+    def always_skipped(model, tx, microbatch=0, **kw):
+        def step(batch, rng=0):
             return {"loss": torch.tensor(float("nan")), "acc": torch.tensor(0.0),
                     "grad_norm": torch.tensor(float("nan")), "skipped": torch.tensor(1.0)}
         return step
 
-    def skipped_once(model, tx, microbatch=0):
+    def skipped_once(model, tx, microbatch=0, **kw):
         calls = []
 
-        def step(batch):
+        def step(batch, rng=0):
             calls.append(1)
             skipped = float(len(calls) == 2)
             return {"loss": torch.tensor(1.0), "acc": torch.tensor(0.0),
@@ -188,7 +191,89 @@ def test_nan_streak_aborts_and_unported_flags_raise(synth_env, monkeypatch):
     with pytest.raises(RuntimeError, match="NaN guard"):
         trainer.run_training(args)
     for flag in (["--mu_transfer"], ["--adam_moment_dtype", "bfloat16"],
-                 ["--use_native_loader"], ["--model_type", "continuous"],
+                 ["--use_native_loader"], ["--lr_scheduler_type", "linear"],
                  ["--fsdp", "2"], ["--sliced_grads", "on"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_main(_train_argv(root, data, root / "no", *flag))
+
+
+@pytest.fixture(scope="module")
+def latent_env(tmp_path_factory):
+    """Two-domain float16 latent datasets (`{domain}_vae_max1000000_{split}`),
+    the tiny STMAR card, and one straight 12-step `--model_type continuous`
+    run on the first batch."""
+    root = tmp_path_factory.mktemp("port_train_latent")
+    data = root / "data"
+    rng = np.random.default_rng(1)
+    for d, domain in enumerate(DOMAINS):
+        for split, n in (("train", 80), ("val", 40)):
+            write_token_dataset(
+                data / f"{domain}_vae_max1000000_{split}",
+                rng.normal(size=(n, 4, 4, 4)).astype(np.float16),
+                np.repeat(np.arange(n // 10), 10),
+                rng.normal(size=(n, 2 + d)).astype(np.float32),
+                {"name": domain, "latent_channels": 4})
+    cfg = DiffusionGenieConfig(num_layers=2, num_heads=2, d_model=32, T=4, S=16,
+                               vae_embed_dim=4, patch_size=2, diffloss_d=2, diffloss_w=128,
+                               num_sampling_steps="4", maskgit_steps=3, action_token_size=8,
+                               action_network="concat+modulate", num_prompt_frames=2,
+                               use_actions=True, mlp_drop=0.1)
+    cfg.save_pretrained(str(root / "config.json"))
+    (root / "split.yaml").write_text(yaml.safe_dump({"domains": ",".join(DOMAINS)}))
+    train_main(_train_argv(root, data, root / "run", "--model_type", "continuous",
+                           "--max_train_steps", "12", "--overfit_first_batch"))
+    return root, data
+
+
+def test_continuous_train_overfits_and_generates(latent_env):
+    root, data = latent_env
+    out = root / "run"
+    assert (out / "step_6").is_dir() and (out / "step_12").is_dir()
+    lines = [json.loads(l) for l in open(out / "metrics.jsonl")]
+    assert lines[0]["_config"]["num_datasets"] == 2
+    assert lines[0]["_config"]["model_type"] == "continuous"
+    losses = [l["train/loss"] for l in lines if "train/loss" in l]
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert all(l["train/skipped"] == 0.0 for l in lines if "train/loss" in l)
+    # the eval at steps 6 and 12 sees the same first batch with the same
+    # draws, so its fall is the overfit; no rollout eval for this family
+    val = [l["val/loss"] for l in lines if "val/loss" in l]
+    assert len(val) == 2 and val[1] < val[0]
+    assert not any("vis/rollout_token_match" in l for l in lines)
+    state = torch.load(out / "step_12" / "train_state.pt", weights_only=True)
+    assert state["step"] == 12 and sum(state["opt_state"]["domain_count"]) == 12
+    config = json.loads((out / "final_checkpt" / "config.json").read_text())
+    assert config["Diffusion"] and config["vae_embed_dim"] == 4 and config["mlp_drop"] == 0.1
+
+    gen = root / "gen"
+    generate_main(["--checkpoint_dir", str(out), "--val_data_dir",
+                   str(data / f"{DOMAINS[0]}_vae_max1000000_val"), "--output_dir", str(gen),
+                   "--batch_size", "2", "--num_prompt_frames", "2", "--use_feature",
+                   "--device", "cpu"])
+    meta = json.loads((gen / "metadata.json").read_text())
+    video = np.fromfile(gen / "video.bin", dtype=np.float16)
+    assert meta["num_images"] == 2 * (2 * 4 - 2) and meta["token_dtype"] == "float16"
+    assert video.size == meta["num_images"] * 4 * 4 * 4
+    assert np.isfinite(video.astype(np.float32)).all()
+
+
+def test_continuous_resume_equals_straight_run(latent_env):
+    """Resumed from the straight run's step_6 in a fresh directory, the run
+    ends at step 12 in the same params and optimizer state bit for bit: the
+    step-keyed draws (diffusion, dropout) repeat too."""
+    root, data = latent_env
+    straight, resumed = root / "run", root / "run_resumed"
+    train_main(_train_argv(root, data, resumed, "--model_type", "continuous",
+                           "--max_train_steps", "12", "--overfit_first_batch",
+                           "--resume_from_checkpoint", str(straight / "step_6")))
+    a, b = (torch.load(d / "step_12" / "model.pt", weights_only=True)
+            for d in (straight, resumed))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    sa, sb = (torch.load(d / "step_12" / "train_state.pt", weights_only=True)
+              for d in (straight, resumed))
+    assert sa["opt_state"]["count"] == sb["opt_state"]["count"] == 12
+    for k in sa["opt_state"]["m"]:
+        assert torch.equal(sa["opt_state"]["m"][k], sb["opt_state"]["m"][k]), k
+        assert torch.equal(sa["opt_state"]["v"][k], sb["opt_state"]["v"][k]), k

@@ -72,8 +72,8 @@ def _build(card, seed=0):
     jcfg = JaxGenieConfig(**card)
     jm = JaxSTMaskGIT(jcfg, dtype=jnp.float32)
     b = _jax_batch(_batch(card, 2, seed))
-    params = jm.init({"params": jax.random.PRNGKey(seed)}, b["input_ids"],
-                     b["labels"], b["action_ids"], b["domain_id"])
+    params = jax.jit(jm.init)({"params": jax.random.PRNGKey(seed)}, b["input_ids"],
+                              b["labels"], b["action_ids"], b["domain_id"])
     rng = np.random.default_rng(seed + 100)
     params = jax.tree.map(
         lambda x: np.asarray(x) + 0.02 * rng.normal(size=x.shape).astype(np.float32),
@@ -104,15 +104,16 @@ def _assert_tree_close(got: dict, want: dict, what: str):
 @pytest.fixture(scope="module")
 def dense_env():
     """1-domain card: JAX value_and_grad at the start, then 2 jitted steps
-    of make_train_step with the dense AdamW."""
+    of make_train_step with the dense AdamW (init and grad jitted too: eager
+    flax takes several times longer on the CPU)."""
     card = _card(1)
     jm, params, tm, cfg = _build(card)
     batches = [_batch(card, 4, seed=10 + i) for i in range(2)]
-    (_, metrics), grads = jax.value_and_grad(
+    (_, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p: (lambda o: (o["loss"], o))(jm.apply(p, *(
             _jax_batch(batches[0])[k] for k in
             ("input_ids", "labels", "action_ids", "domain_id")))),
-        has_aux=True)(params)
+        has_aux=True))(params)
     sched = jax_step.custom_cosine_schedule(LR, 1, 10)
     tx = jax_step.make_optimizer(sched, WD, eps=EPS, params_template=params)
     step = jax.jit(jax_step.make_train_step(jm, tx))
@@ -281,7 +282,7 @@ class _FiniteLossNaNGrad(nn.Module):
         self.w = nn.Parameter(torch.ones(3, 4))
         self.b = nn.Parameter(torch.ones(4))
 
-    def forward(self, input_ids, labels, action_ids=None, domain_id=0):
+    def forward(self, input_ids, labels, action_ids=None, domain_id=0, dropout=None):
         loss = torch.sqrt(self.w[domain_id] * 0.0).sum() + (self.b * 0).sum() + 1.0
         return {"loss": loss, "acc": torch.zeros(())}
 

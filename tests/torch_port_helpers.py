@@ -1,6 +1,8 @@
 """Shared set-up for the tests/test_torch_*.py files: one tiny discrete and
 one tiny continuous card built in both packages, JAX weights converted into
-the port, and the JAX rollouts' random draws rebuilt as tensors."""
+the port, the JAX rollouts' random draws rebuilt as tensors, and the JAX
+training forwards' draws (dropout masks, diffusion timesteps and noise,
+action masks) recorded to hand to the port."""
 
 import jax
 import jax.numpy as jnp
@@ -20,25 +22,26 @@ from hma_tpu_torch.models.st_mask_git import STMaskGIT
 
 
 def tiny_card(qk_norm: bool = False,
-              action_network: str = "concat+modulate") -> dict:
+              action_network: str = "concat+modulate", **kw) -> dict:
     """2 layers, 2 heads, d 32, T 4, S 16, 8 concat action tokens,
-    1 domain (as tests/test_rollout.py)."""
+    1 domain (as tests/test_rollout.py); `kw` overrides."""
     return dict(num_layers=2, num_heads=2, d_model=32, T=4, S=16,
                 image_vocab_size=2**18, num_factored_vocabs=2,
                 action_token_size=8, action_network=action_network,
                 use_actions=True, action_domains=["a"], d_actions=[4],
-                action_stats=[[[0.1, -0.2], [1.5, 0.5]]], qk_norm=qk_norm)
+                action_stats=[[[0.1, -0.2], [1.5, 0.5]]], qk_norm=qk_norm, **kw)
 
 
 def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
-               action_network: str = "concat+modulate"):
+               action_network: str = "concat+modulate", **card_kw):
     """(jax_model, jax_params, torch_model, tokens, actions) in fp32.
 
-    Every parameter is perturbed with noise after init so that zero-init
+    The init is jitted (eager flax init takes several times longer on the
+    CPU). Every parameter is perturbed with noise after init so that zero-init
     tensors (positional embedding, biases, mask tokens) are exercised by
     the conversion too. tokens (B, T, S) int32 with some mask ids;
     actions (B, T, max_d_action) float32."""
-    card = tiny_card(qk_norm, action_network)
+    card = tiny_card(qk_norm, action_network, **card_kw)
     jcfg = JaxGenieConfig(**card)
     jm = JaxSTMaskGIT(jcfg, dtype=jnp.float32)
     rng = np.random.default_rng(seed)
@@ -46,8 +49,8 @@ def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
                           (B, jcfg.T, jcfg.S)).astype(np.int32)
     tokens[:, -1, ::3] = jcfg.image_vocab_size
     actions = rng.normal(size=(B, jcfg.T, jcfg.max_d_action)).astype(np.float32)
-    params = jm.init({"params": jax.random.PRNGKey(seed)}, tokens, tokens,
-                     actions, jnp.asarray(0, jnp.int32))
+    params = jax.jit(jm.init)({"params": jax.random.PRNGKey(seed)}, tokens, tokens,
+                              actions, jnp.asarray(0, jnp.int32))
     params = perturbed(params, rng)
     cfg = GenieConfig(**card)
     tm = STMaskGIT(cfg, dtype=torch.float32, device="cpu")
@@ -87,8 +90,8 @@ def perturbed(params, rng, scale: float = 0.02):
 def build_mar_pair(B: int = 2, seed: int = 0, **card_kw):
     """(jax_model, jax_params, torch_model, latents, actions) in fp32 for
     the tiny continuous card; latents (B, T, h, w, C), actions (B, T,
-    max_d_action), both float32 numpy. Every parameter is perturbed after
-    init."""
+    max_d_action), both float32 numpy. The init is jitted; every parameter
+    is perturbed after it."""
     card = tiny_mar_card(**card_kw)
     jcfg = JaxDiffusionGenieConfig(**card)
     jm = JaxSTMAR(jcfg, dtype=jnp.float32)
@@ -97,10 +100,10 @@ def build_mar_pair(B: int = 2, seed: int = 0, **card_kw):
     lat = rng.normal(size=(B, jcfg.T, h, h, jcfg.vae_embed_dim)).astype(np.float32)
     actions = rng.normal(size=(B, jcfg.T, jcfg.max_d_action)).astype(np.float32)
     mask = np.zeros((B, jcfg.T, h, h), np.int32)
-    params = jm.init({"params": jax.random.PRNGKey(seed),
-                      "diffusion": jax.random.PRNGKey(seed + 1),
-                      "action_drop": jax.random.PRNGKey(seed + 2)},
-                     lat, lat, actions, jnp.asarray(0, jnp.int32), mask)
+    params = jax.jit(jm.init)({"params": jax.random.PRNGKey(seed),
+                               "diffusion": jax.random.PRNGKey(seed + 1),
+                               "action_drop": jax.random.PRNGKey(seed + 2)},
+                              lat, lat, actions, jnp.asarray(0, jnp.int32), mask)
     params = perturbed(params, rng)
     cfg = DiffusionGenieConfig(**card)
     tm = STMAR(cfg, dtype=torch.float32, device="cpu")
@@ -146,3 +149,96 @@ def jax_mar_draws(key, frames: int, B: int, S: int, steps: int, K: int, C: int,
     return {"orders": torch.from_numpy(np.stack(orders).astype(np.int64)),
             "noise": torch.from_numpy(np.stack(noise)),
             "zs": torch.from_numpy(np.stack(zs))}
+
+
+class JaxTrainingDraws:
+    """Record the random draws of `hma_tpu` training forwards traced or run
+    inside the `with` block (not under remat), to hand them to the port:
+
+    - `dropout`: every `nn.Dropout` mask in call order, drawn as flax draws
+      it (one `make_rng` per call, bernoulli(keep)): two per STBlock, after
+      the MLP's GELU and after its fc2;
+    - `action_masks`: the `action_mask` each STMAR.compute_latents received;
+    - `diffusion`: (t, noise) of each `training_losses` call (the noise
+      rebuilt from its key as the function draws it).
+
+    Under jit the records are tracers: return `rec.tree()` from the jitted
+    function and rebuild with `JaxTrainingDraws.of(tree)` outside it.
+    `masks` and `draws` give them in the port's formats."""
+
+    def __init__(self, tree=None):
+        tree = tree or {"dropout": [], "action_masks": [], "diffusion": []}
+        self.dropout = tree["dropout"]
+        self.action_masks = tree["action_masks"]
+        self.diffusion = tree["diffusion"]
+
+    def tree(self) -> dict:
+        return {"dropout": self.dropout, "action_masks": self.action_masks,
+                "diffusion": self.diffusion}
+
+    @classmethod
+    def of(cls, tree) -> "JaxTrainingDraws":
+        return cls(jax.tree.map(np.asarray, tree))
+
+    def __enter__(self):
+        import flax.linen as nn
+
+        from hma_tpu.models import diffloss as jax_diffloss
+        from hma_tpu.models.st_mar import STMAR as JaxSTMAR
+
+        def intercept(next_fun, args, kwargs, context):
+            mod = context.module
+            if isinstance(mod, nn.Dropout) and context.method_name == "__call__":
+                x, deterministic = args[0], kwargs.get(
+                    "deterministic", args[1] if len(args) > 1 else None)
+                if deterministic or mod.rate == 0.0:
+                    return next_fun(*args, **kwargs)
+                rng = mod.make_rng(mod.rng_collection)
+                self.dropout.append(jax.random.bernoulli(rng, 1.0 - mod.rate, x.shape))
+                return next_fun(x, deterministic, rng=rng)
+            if isinstance(mod, JaxSTMAR) and context.method_name == "compute_latents":
+                am = args[3] if len(args) > 3 else kwargs.get("action_mask")
+                self.action_masks.append(am)
+            return next_fun(*args, **kwargs)
+
+        original = jax_diffloss.training_losses
+
+        def recording(net_apply, sched, x0, t, cond, key, channel_mask=None):
+            self.diffusion.append((t, jax.random.normal(key, x0.shape, x0.dtype)))
+            return original(net_apply, sched, x0, t, cond, key, channel_mask)
+
+        self._restore = (jax_diffloss, original)
+        jax_diffloss.training_losses = recording
+        self._ctx = nn.intercept_methods(intercept)
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._ctx.__exit__(*exc)
+        module, original = self._restore
+        module.training_losses = original
+
+    def masks(self, start: int, layers: int) -> list:
+        """The port's `dropout` for `layers` blocks from mask `start` on."""
+        m = [torch.from_numpy(np.array(x)) for x in self.dropout[start:start + 2 * layers]]
+        return [(m[2 * i], m[2 * i + 1]) for i in range(layers)]
+
+    def draws(self, i: int = 0, layers: int = 0) -> dict:
+        """STMAR forward i, trained with `layers` blocks of dropout (0: none
+        recorded), as the port's `draws`."""
+        def t_(x):
+            return torch.from_numpy(np.array(x))
+
+        am = self.action_masks[i]
+        heads = len(self.diffusion) // len(self.action_masks)
+        t, noise = self.diffusion[i * heads]
+        out = {"t": t_(t).long(), "noise": t_(noise)}
+        if am is not None:
+            T = am.shape[1]
+            out["action_t0"] = t_(T - np.asarray(am).reshape(am.shape[0], T).sum(1)).long()
+            if heads > 1:
+                t, noise = self.diffusion[i * heads + 1]
+                out.update(action_t=t_(t).long(), action_noise=t_(noise))
+        if layers:
+            out["dropout"] = self.masks(2 * layers * i, layers)
+        return out
