@@ -13,17 +13,36 @@
 // in and a unit stride on D; lse and the delta scratch are (B, H, S) fp32;
 // dq, dk, dv are written contiguous (B, S, H, D).
 //
-// Design (see hma_tpu_torch/ops/fused_attention.py for the reasoning): the TPU
-// kernel holds a head's whole S x S fp32 score block in VMEM (400 KB at
-// S = 320); a Hopper block has at most 227 KB, so no score block exists here.
-// Two passes, deterministic and without atomics, FlashAttention-2 style:
-//   (a) dq pass, grid (ceil(S / ROWS), H, B), one thread per query row. It
-//       computes its delta from its own dout and out rows and stores it to the
-//       scratch, then streams key/value tiles through shared memory (fp32,
-//       read as warp-wide broadcasts) and recomputes p, dp and ds per key.
-//   (b) dk/dv pass, the same grid, one thread per key row. It streams q,
-//       dout, lse and delta tiles and accumulates dk and dv in registers.
-// Scores are recomputed in both passes: the price of keeping no score block.
+// What bounds it: bytes (five inputs read, three outputs written: 127 MB at
+// (B 96, S 320, H 8, D 32), 38 us at 3.35 TB/s); then the exponentials, one a
+// score in each pass. The TPU kernel holds a head's whole S x S fp32 score
+// block in VMEM (400 KB at S = 320); a Hopper block has at most 227 KB, so no
+// score block exists here. Two passes, deterministic and without atomics,
+// FlashAttention-2 style, each recomputing the scores from q, k and lse.
+//
+// bf16, the timed path: the five products on tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 accumulate), tiles staged through a double-buffered
+// shared-memory ring with 16-byte cp.async copies and read with ldmatrix.
+//   (a) dq pass, grid (ceil(S / 16 W), H, B), W warps of 16 query rows. Each
+//       warp keeps its q and dout rows as A fragments, computes delta as the
+//       diagonal of dout out^T on the tensor cores, so that it sums its D
+//       terms in the order dp does (where out equals v, dp - delta is exactly
+//       0, as in the plain version), and stores it to the scratch. Then it
+//       streams 64-key K and V tiles: per 16 keys s = q k^T, p = exp(s - lse)
+//       (exp as ex2 of (s - lse) log2(e) on the special-function unit),
+//       dp = dout v^T, ds = round(p (dp - delta)) packed from the accumulators
+//       into an A fragment, dq += ds k.
+//   (b) dk/dv pass, launched after (a) on the same stream: the same grid over
+//       key rows; each warp keeps its k and v rows as A fragments and streams
+//       64-query q, dout, lse and delta tiles: per 16 queries s^T = k q^T,
+//       p^T, dv += round(p)^T dout, dp^T = v dout^T, dk += round(ds)^T q.
+//   W is 4, or 2 when fewer than two 4-warp blocks per SM would exist.
+//
+// fp32: the CUDA-core body of the first port, kept because tensor cores have
+// no full-fp32 product and TF32 would break the checks built on it (card vs
+// CPU gradients to 1e-4). No timed path runs fp32. The same two passes, one
+// thread per query (a) or key (b) row, tiles held as fp32 in shared memory
+// and read as warp-wide broadcasts.
 //
 // C entry point: hma_fused_attention_bwd, returns cudaGetLastError().
 
@@ -31,19 +50,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int ROWS = 64;  // rows (threads) per block
 constexpr int KT = 64;    // rows per shared-memory tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to the compute dtype T, returned as fp32
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -239,6 +256,238 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   return cudaGetLastError();
 }
 
+
+// ---- bf16 on tensor cores ----------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// (a): dq and delta, 16 query rows a warp
+template <int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+spatial_attention_bwd_dq_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ out, const float* __restrict__ lse, const bf16* __restrict__ dout,
+    bf16* __restrict__ dq, float* __restrict__ delta, int S, int H, int causal,
+    Strides sq, Strides sk, Strides sv, Strides so, Strides sd) {
+  using namespace hma_mma;
+  constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS, P = D + 8;
+  // buffer 1 of the ring first holds the block's q and dout rows
+  __shared__ __align__(16) bf16 ks[2][KT][P];
+  __shared__ __align__(16) bf16 vs[2][KT][P];
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * H + h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int n_keys = causal ? min(S, q0 + ROWS) : S;
+  const int n_tiles = (n_keys + KT - 1) / KT;
+  const int row = q0 + warp * 16 + g;  // and row + 8
+  const int lim[2] = {causal ? min(row + 1, S) : S, causal ? min(row + 9, S) : S};
+
+  auto issue = [&](int j) {
+    load_rows<KT, D, THREADS>(ks[j & 1], kb, sk.s, j * KT, n_keys);
+    load_rows<KT, D, THREADS>(vs[j & 1], vb, sv.s, j * KT, n_keys);
+    cp_async_commit();
+  };
+  load_rows<ROWS, D, THREADS>(ks[1], q + b * sq.b + h * sq.h, sq.s, q0, S);
+  load_rows<ROWS, D, THREADS>(vs[1], dout + b * sd.b + h * sd.h, sd.s, q0, S);
+  issue(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[D / 16][4], da[D / 16][4];
+  load_a_frags<D>(qa, ks[1], warp * 16);
+  load_a_frags<D>(da, vs[1], warp * 16);
+
+  // delta: the diagonal of dout . out^T over the warp's 16 rows, the out rows
+  // read straight into B fragments (n = row, k = d)
+  float dd[2][4] = {};
+  const bf16* ob = out + b * so.b + h * so.h;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int r = q0 + warp * 16 + nt * 8 + g;
+      const bf16* orow = ob + (r < S ? (long long)r * so.s : 0) + kc * 16 + 2 * t;
+      const uint32_t b0 = r < S ? *reinterpret_cast<const uint32_t*>(orow) : 0u;
+      const uint32_t b1 = r < S ? *reinterpret_cast<const uint32_t*>(orow + 8) : 0u;
+      mma16816(dd[nt], da[kc], b0, b1);
+    }
+  // (g, g) sits in n-tile 0 and (g + 8, g + 8) in n-tile 1, both on the lane
+  // with t = g / 2, as element g % 2 of its row pair
+  const int src = (lane & ~3) | (g >> 1);
+  const float dl[2] = {__shfl_sync(0xffffffffu, (g & 1) ? dd[0][1] : dd[0][0], src),
+                       __shfl_sync(0xffffffffu, (g & 1) ? dd[1][3] : dd[1][2], src)};
+  float ls[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    ls[hf] = r < S ? lse[bh * S + r] : 0.f;
+    if (t == 0 && r < S) delta[bh * S + r] = dl[hf];
+  }
+  __syncthreads();  // buffer 1 is free for the ring
+
+  float acc[D / 8][4] = {};
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) issue(j + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = j & 1;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const int key0 = j * KT + kc * 16;
+      if (key0 >= n_keys || (causal && key0 > q0 + warp * 16 + 15)) continue;  // all masked
+      float s[2][4] = {}, dp[2][4] = {}, ds[2][4];
+      mma_rows_t<D>(s[0], s[1], qa, ks[buf], kc * 16);
+      mma_rows_t<D>(dp[0], dp[1], da, vs[buf], kc * 16);
+      if (key0 + 16 > S || (causal && key0 + 16 > q0 + warp * 16 + 1)) {  // some masked
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key0 + i * 8 + 2 * t + (e & 1) >= lim[e >> 1]) s[i][e] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[i][e] = exp2_ftz((s[i][e] - ls[e >> 1]) * LOG2E) * (dp[i][e] - dl[e >> 1]);
+      uint32_t a[4];
+      c_to_a(a, ds[0], ds[1]);
+      mma_rows<D>(acc, a, ks[buf], kc * 16);
+    }
+    __syncthreads();  // the next tile refills this buffer
+  }
+  store_c<D>(dq + (b * (long long)S * H + h) * D, (long long)H * D, acc, q0 + warp * 16, S);
+}
+
+// (b): dk and dv, 16 key rows a warp
+template <int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+spatial_attention_bwd_dkdv_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ lse, const bf16* __restrict__ dout,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int S, int H, int causal, Strides sq, Strides sk, Strides sv, Strides sd) {
+  using namespace hma_mma;
+  constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS, P = D + 8;
+  // buffer 1 of the ring first holds the block's k and v rows
+  __shared__ __align__(16) bf16 qs[2][KT][P];
+  __shared__ __align__(16) bf16 dos[2][KT][P];
+  __shared__ __align__(16) float lss[2][KT];
+  __shared__ __align__(16) float dls[2][KT];
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * H + h;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* db = dout + b * sd.b + h * sd.h;
+  // causal: only queries i >= key see a key; tiles wholly before k0 are skipped
+  const int i_start = causal ? k0 / KT * KT : 0;
+  const int n_tiles = (S - i_start + KT - 1) / KT;
+  const int key = k0 + warp * 16 + g;  // and key + 8
+
+  auto issue = [&](int i) {
+    const int i0 = i_start + i * KT, buf = i & 1;
+    load_rows<KT, D, THREADS>(qs[buf], qb, sq.s, i0, S);
+    load_rows<KT, D, THREADS>(dos[buf], db, sd.s, i0, S);
+    load_floats<KT, THREADS>(lss[buf], lse + bh * S, i0, S);
+    load_floats<KT, THREADS>(dls[buf], delta + bh * S, i0, S);
+    cp_async_commit();
+  };
+  load_rows<ROWS, D, THREADS>(qs[1], k + b * sk.b + h * sk.h, sk.s, k0, S);
+  load_rows<ROWS, D, THREADS>(dos[1], v + b * sv.b + h * sv.h, sv.s, k0, S);
+  issue(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_a_frags<D>(ka, qs[1], warp * 16);
+  load_a_frags<D>(va, dos[1], warp * 16);
+  __syncthreads();  // buffer 1 is free for the ring
+
+  float dka[D / 8][4] = {}, dva[D / 8][4] = {};
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) issue(i + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = i & 1, i0 = i_start + i * KT;
+#pragma unroll
+    for (int qc = 0; qc < 4; ++qc) {
+      const int c0 = qc * 16, q_first = i0 + c0;
+      if (q_first >= S || (causal && q_first + 15 < k0 + warp * 16)) continue;  // all masked
+      float st[2][4] = {}, dpt[2][4] = {}, p[2][4], ds[2][4];
+      mma_rows_t<D>(st[0], st[1], ka, qs[buf], c0);
+      if (q_first + 16 > S || (causal && q_first < k0 + warp * 16 + 15)) {  // some masked
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q_first + n * 8 + 2 * t + (e & 1);
+            if (qi >= S || (causal && qi < key + 8 * (e >> 1))) st[n][e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[n][e] = exp2_ftz((st[n][e] - lss[buf][c0 + n * 8 + 2 * t + (e & 1)]) * LOG2E);
+      uint32_t a[4];
+      c_to_a(a, p[0], p[1]);
+      mma_rows<D>(dva, a, dos[buf], c0);
+      mma_rows_t<D>(dpt[0], dpt[1], va, dos[buf], c0);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[n][e] = p[n][e] * (dpt[n][e] - dls[buf][c0 + n * 8 + 2 * t + (e & 1)]);
+      c_to_a(a, ds[0], ds[1]);
+      mma_rows<D>(dka, a, qs[buf], c0);
+    }
+    __syncthreads();  // the next tile refills this buffer
+  }
+  const long long o = (b * (long long)S * H + h) * D;
+  store_c<D>(dk + o, (long long)H * D, dka, k0 + warp * 16, S);
+  store_c<D>(dv + o, (long long)H * D, dva, k0 + warp * 16, S);
+}
+
+template <int D, int WARPS>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* out,
+                        const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                        void* delta, int B, int S, int H, int causal, const long long* st,
+                        cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
+      so{st[9], st[10], st[11]}, sd{st[12], st[13], st[14]};
+  const dim3 grid((S + 16 * WARPS - 1) / (16 * WARPS), H, B);
+  spatial_attention_bwd_dq_bf16<D, WARPS><<<grid, 32 * WARPS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(out), static_cast<const float*>(lse),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<float*>(delta),
+      S, H, causal, sq, sk, sv, so, sd);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  spatial_attention_bwd_dkdv_bf16<D, WARPS><<<grid, 32 * WARPS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(lse), static_cast<const bf16*>(dout),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      S, H, causal, sq, sk, sv, sd);
+  return cudaGetLastError();
+}
+
+// 4 warps a block, or 2 where 4-warp blocks would give fewer than two a SM
+template <int D>
+cudaError_t launch_bf16_any(const void* q, const void* k, const void* v, const void* out,
+                            const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                            void* delta, int B, int S, int H, int causal, const long long* st,
+                            cudaStream_t stream) {
+  if (hma_mma::few_blocks((long long)((S + 63) / 64) * H * B))
+    return launch_bf16<D, 2>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal,
+                             st, stream);
+  return launch_bf16<D, 4>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal, st,
+                           stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, (batch, row,
@@ -261,8 +510,11 @@ extern "C" int hma_fused_attention_bwd(
   launch<T, DD>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal, st, s)
   if (dtype == 0 && D == 32) return (int)HMA_LAUNCH(float, 32);
   if (dtype == 0 && D == 64) return (int)HMA_LAUNCH(float, 64);
-  if (dtype == 1 && D == 32) return (int)HMA_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == 1 && D == 64) return (int)HMA_LAUNCH(__nv_bfloat16, 64);
 #undef HMA_LAUNCH
+#define HMA_LAUNCH_BF16(DD) \
+  launch_bf16_any<DD>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal, st, s)
+  if (dtype == 1 && D == 32) return (int)HMA_LAUNCH_BF16(32);
+  if (dtype == 1 && D == 64) return (int)HMA_LAUNCH_BF16(64);
+#undef HMA_LAUNCH_BF16
   return (int)cudaErrorInvalidValue;
 }

@@ -13,9 +13,11 @@ The library's file name carries a hash of the source, of the headers
 and a stale library is never loaded. `build_all` starts one nvcc per
 source, all at once. `launch_attention` holds the checks and the launch
 that both attention forward kernels share, `launch_attention_bwd` those of
-both backward kernels, `launch_temporal_resident{,_bwd}` those of the
-resident-layout temporal kernel (K5'), and `launch_denoise_loop` the
-scratch and the launch of the denoise-loop kernel.
+both backward kernels (with `align16`, rows that start 16-byte aligned, as
+the spatial kernels' cp.async copies need),
+`launch_temporal_resident{,_bwd}` those of the resident-layout temporal
+kernel (K5'), and `launch_denoise_loop` the scratch and the launch of the
+denoise-loop kernel.
 """
 
 from __future__ import annotations
@@ -104,11 +106,20 @@ def _entry(name: str, n_ptrs: int, n_ints: int, n_strides: int):
     return fn
 
 
-def _check(name: str, tensors, max_len: int, ndim: int = 4) -> None:
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of t (its last axis) starts 16-byte aligned."""
+    return not (t.data_ptr() % 16
+                or any(s * t.element_size() % 16 for s in t.stride()[:-1]))
+
+
+def _check(name: str, tensors, max_len: int, ndim: int = 4,
+           align16: bool = False) -> None:
     """Raise unless `tensors` are (lead, L, H, D), or with ndim 5 the
     resident kernel's (B, L, S, H, D), of one shape and dtype (fp32 or bf16)
     on one device, with D in HEAD_DIMS, 0 < L <= max_len, no empty axis and
-    a unit stride on D."""
+    a unit stride on D; with `align16` also every row 16-byte aligned (the
+    data pointer and the strides of the other axes), as the spatial kernels'
+    cp.async copies need."""
     q = tensors[0]
     if any(t.shape != q.shape for t in tensors) or q.ndim != ndim:
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
@@ -121,17 +132,22 @@ def _check(name: str, tensors, max_len: int, ndim: int = 4) -> None:
     if any(t.device != q.device or t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name}: inputs must share a device and have a "
                          "unit stride on D")
+    if align16 and not all(map(aligned16, tensors)):
+        raise ValueError(f"{name}: every row must start 16-byte aligned (data "
+                         "pointer and strides); copy a misaligned view first")
 
 
 def launch_attention(name: str, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, max_len: int, *flags: int):
+                     v: torch.Tensor, max_len: int, *flags: int,
+                     align16: bool = False):
     """Launch the attention forward kernel `name` on CUDA tensors q, k, v.
 
-    q, k, v: (lead, L, H, D) as `_check` takes them, any strides on the
-    first three axes. Raises on anything else or when the launch fails.
-    Returns (out (lead, L, H, D) contiguous, lse (lead, H, L) fp32).
+    q, k, v: (lead, L, H, D) as `_check` takes them (with `align16`), any
+    strides on the first three axes. Raises on anything else or when the
+    launch fails. Returns (out (lead, L, H, D) contiguous, lse (lead, H, L)
+    fp32).
     """
-    _check(name, (q, k, v), max_len)
+    _check(name, (q, k, v), max_len, align16=align16)
     lead, L, H, D = q.shape
     out = torch.empty(lead, L, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(lead, H, L, dtype=torch.float32, device=q.device)
@@ -148,16 +164,17 @@ def launch_attention(name: str, q: torch.Tensor, k: torch.Tensor,
 def launch_attention_bwd(name: str, q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                          dout: torch.Tensor, max_len: int, *flags: int,
-                         delta: bool = False):
+                         delta: bool = False, align16: bool = False):
     """Launch the attention backward kernel `name` on CUDA tensors.
 
-    q, k, v, out, dout: (lead, L, H, D) as `_check` takes them, any
-    strides on the first three axes; lse: (lead, H, L) fp32 as the forward
-    wrote it. With `delta`, a (lead, H, L) fp32 scratch for the row sums
-    dout . out is allocated for the kernel. Raises on anything else or when
-    the launch fails. Returns contiguous (dq, dk, dv), each (lead, L, H, D).
+    q, k, v, out, dout: (lead, L, H, D) as `_check` takes them (with
+    `align16`), any strides on the first three axes; lse: (lead, H, L)
+    fp32 as the forward wrote it. With `delta`, a (lead, H, L) fp32
+    scratch for the row sums dout . out is allocated for the kernel. Raises
+    on anything else or when the launch fails. Returns contiguous (dq, dk,
+    dv), each (lead, L, H, D).
     """
-    _check(name, (q, k, v, out, dout), max_len)
+    _check(name, (q, k, v, out, dout), max_len, align16=align16)
     lead, L, H, D = q.shape
     if (lse.shape != (lead, H, L) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):

@@ -10,32 +10,46 @@ log-sum-exp `lse` that the backward needs. The ST transformer runs it as the
 bidirectional spatial pass over the 320 tokens of a frame (B = 8 per cached
 frame, B = 96 on a full forward; H = 8, D = 32).
 
-What bounds it on an H100: bytes. At B = 96 it must move 64 MB (q, k, v,
-out in bf16 plus lse) for 10 GFLOP, ~19 us at 3.35 TB/s against ~10 us of
-bf16 tensor-core time. The TPU kernel keeps the whole 320 x 320 fp32 score
-block of a head in VMEM (400 KB); a Hopper block has at most 227 KB of
-shared memory, so the design changes:
-  - one block per (64-query tile, head, batch element), one thread per
-    query row holding its q row and fp32 output accumulator in registers;
-  - keys and values stream through shared memory in 64-key tiles (fp32,
-    read as warp-wide broadcasts), so any S works and the score block never
-    exists in memory;
-  - two sweeps over the keys: the first finds each row's max and sum, the
-    second forms the exact normalised probabilities, rounds them to the
-    compute dtype (as `fused_attention.py:73` does) and accumulates p v.
-It runs on CUDA cores, not tensor cores: right and simple first
-(wgmma/TMA are later work); PERF.md has its time beside the bound.
+What bounds it on an H100: bytes, then the exponentials. At B = 96 it must
+move 64 MB (q, k, v, out in bf16 plus lse): ~19 us at 3.35 TB/s. Its two
+sweeps take 157 M exponentials, ~40 us at 16 a clock on each SM's
+special-function units; the ~15 GFLOP of products are a few us on tensor
+cores. The TPU kernel keeps the whole 320 x 320 fp32 score block of a head
+in VMEM (400 KB); a Hopper block has at most 227 KB of shared memory, so
+the design changes. In bf16, the dtype of every timed path:
+  - one block of 4 warps per (64-query tile, head, batch element), 2 warps
+    where that would leave fewer than two blocks an SM; each warp owns 16
+    query rows and keeps them as tensor-core fragments;
+  - key and value tiles of 64 rows are copied into shared memory with
+    16-byte cp.async copies straight from the strided views: all of a
+    head's tiles at once when they fit in 64 KB (S <= 384 at D 32, <= 192
+    at D 64), else through a double-buffered ring;
+  - two sweeps over the keys with s = q k^T on mma.sync (bf16 in, fp32
+    accumulate): the first finds each row's max and sum, the second forms
+    the exact normalised probabilities in fp32, rounds them to bf16 (as
+    `fused_attention.py:73` does) straight from the accumulator registers
+    into the operand of p v, also on mma.sync.
+In fp32 (exactness checks only) it keeps the first port's body on CUDA
+cores: one thread per query row, fp32 tiles in shared memory; tensor cores
+have no full-fp32 product. PERF.md has the times beside the bound and SDPA.
 
 K2' replaces `_bwd_kernel` (entered through `_bwd` and `_vjp_bwd`), with its
 numerics: p = exp(q k^T - lse) in fp32, dv = round(p)^T dout, delta =
 rowsum(dout * out), ds = round(p (dout v^T - delta)), dq = ds k, dk = ds^T q
 (round = to the compute dtype; fp32 accumulation). It is bound by bytes as
 well: it reads q, k, v, out, dout and writes dq, dk, dv, 127 MB at B = 96
-(~38 us at 3.35 TB/s; its 25 GFLOP take ~25 us of bf16 tensor-core time).
-The TPU kernel holds the S x S score block again; K2' runs two passes
-without one and without atomics: a dq pass (one thread per query row, which
-also stores delta) and a dk/dv pass (one thread per key row), each
-recomputing the scores from q, k and lse.
+(~38 us at 3.35 TB/s). The TPU kernel holds the S x S score block again;
+K2' runs two passes without one and without atomics: a dq pass over query
+tiles, which also stores delta, and a dk/dv pass over key tiles, each
+recomputing the scores from q, k and lse. In bf16 all five products run on
+mma.sync with 16 rows a warp and tiles streamed through shared memory by
+cp.async; delta is the diagonal of dout out^T on the same tensor cores, so
+that it sums its terms in the order dp does. In fp32, one thread per row on
+CUDA cores, as first ported.
+
+Both take rows that start 16-byte aligned (data pointer and strides, as
+views into the (B, S, 3, H, D) projection do): the forward raises on
+anything else, the backward copies a misaligned dout first.
 
 Public layout (B, S, H, D) with any strides on the first three axes and a
 unit stride on D; `out` comes back contiguous, `lse` as (B, H, S) fp32.
@@ -47,7 +61,7 @@ from typing import Optional
 
 import torch
 
-from hma_tpu_torch.ops._build import launch_attention, launch_attention_bwd
+from hma_tpu_torch.ops._build import aligned16, launch_attention, launch_attention_bwd
 
 NEG_INF = -1e30  # the Pallas kernel's mask value
 MAX_S = 1024
@@ -130,13 +144,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False):
     """softmax(q k^T [causal]) v with q pre-scaled; returns (out, lse).
 
-    CPU tensors take the plain version; CUDA tensors launch K1' or raise.
+    CPU tensors take the plain version; CUDA tensors launch K1' or raise,
+    also when a row of q, k or v does not start 16-byte aligned (the
+    kernel stages rows with 16-byte asynchronous copies).
     """
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    out = launch_attention("fused_attention_fwd", q, k, v, MAX_S, int(causal))
+    out = launch_attention("fused_attention_fwd", q, k, v, MAX_S, int(causal),
+                           align16=True)
     fused_attention.launches += 1
     return out
 
@@ -148,18 +165,19 @@ def fused_attention_bwd(q, k, v, out, lse, dout, causal: bool = False):
     """(dq, dk, dv) of `fused_attention` from its out and lse.
 
     CPU tensors take the plain version; CUDA tensors launch K2' or raise.
-    dout is cast to q.dtype and made contiguous only when its D stride is
-    not 1; q, k, v, out and dout may have any other strides.
+    dout is cast to q.dtype and copied only when its D stride is not 1 or a
+    row is not 16-byte aligned; q, k, v, out and dout may have any other
+    strides, q, k, v and out with 16-byte-aligned rows.
     """
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, out, lse, dout, causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd: unsupported device {q.device}")
     dout = dout.to(q.dtype)
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    if dout.stride(-1) != 1 or not aligned16(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
     grads = launch_attention_bwd("fused_attention_bwd", q, k, v, out, lse, dout,
-                                 MAX_S, int(causal), delta=True)
+                                 MAX_S, int(causal), delta=True, align16=True)
     fused_attention_bwd.launches += 1
     return grads
 

@@ -95,18 +95,20 @@ def test_temporal_bwd_plain_matches_pallas_fp32():
         np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K2-noncausal"])
 def test_bwd_plain_matches_pallas_bf16(kernel):
     """Same out/lse/dout into both backwards, bf16: the plain version with
     the kernel's own rounding differs on <= 1 % of outputs, the one with
-    the other kernel's rounding (the negative control) on more."""
+    the other kernel's rounding (the negative control) on more. K2 causal,
+    and non-causal as the main path calls it."""
     bf = torch.bfloat16
-    if kernel == "K2":
+    if kernel.startswith("K2"):
+        causal = kernel == "K2"
         q, k, v, dout = _inputs((2, 64, 2, 32), seed=2)
-        out, lse, want = _spatial_pallas(q, k, v, dout, True, jnp.bfloat16)
+        out, lse, want = _spatial_pallas(q, k, v, dout, causal, jnp.bfloat16)
         args = [_t(x, bf) for x in (q, k, v, out)] + [_t(lse), _t(dout, bf)]
-        got = fused_attention_bwd_plain(*args, True)
-        control = attention_bwd_plain(*args, True, False)
+        got = fused_attention_bwd_plain(*args, causal)
+        control = attention_bwd_plain(*args, causal, False)
     else:
         q, k, v, dout = _inputs((256, 12, 2, 32), seed=3)
         out, lse, want = _temporal_pallas(q, k, v, dout, jnp.bfloat16)

@@ -1,6 +1,7 @@
 """Port attention ops on the CPU: the plain versions of K1' and K3' against
-the Pallas kernels in interpret mode and against `_attend` (fp32), and the
-decode step against hma_tpu's. The CUDA kernels themselves are held to
+the Pallas kernels in interpret mode and against `_attend` (fp32), K1''s in
+bf16 against Pallas K1's rounding of the probs, and the decode step against
+hma_tpu's. The CUDA kernels themselves are held to
 these plain versions in tests/test_torch_kernels_gpu.py."""
 
 import jax
@@ -50,6 +51,25 @@ def test_spatial_plain_matches_pallas_and_attend(causal):
     # the wrapper takes the plain version for CPU tensors
     out2, lse2 = fused_attention(*_t(q, k, v), causal)
     assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_spatial_fwd_plain_rounds_probs_like_pallas_bf16(causal):
+    """K1''s arbiter in bf16: the plain spatial forward (probs normalised in
+    fp32 and rounded to bf16 before p v) equals Pallas K1 in interpret mode
+    on >= 99 % of outputs, and its lse to 1e-5; keeping the probs fp32, as
+    a kernel that skipped the rounding would, moves far more of them."""
+    q, k, v = _make((2, 64, 2, 32), seed=3)
+    tr = lambda x: jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1, 3)
+    want, want_lse = jax_fa._fwd(tr(q), tr(k), tr(v), causal, True)
+    want = np.asarray(want.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out, lse = fused_attention_plain(tq, tk, tv, causal)
+    assert out.dtype == torch.bfloat16
+    assert (out.float().numpy() != want).mean() <= 0.01
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=1e-5)
+    unrounded, _ = fused_attention_plain(tq, tk, tv, causal, dtype=torch.float32)
+    assert (unrounded.float().numpy() != want).mean() > 0.1
 
 
 def test_temporal_plain_matches_pallas_and_attend():

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, at the main path's
 shapes and one ragged shape each, fp32 and bf16: K1' and K3' (forward: out
 and lse), K2' and K4' (backward: dq, dk, dv from the same out, lse and a
-strided dout), the autograd.Functions' launches, K5' (the resident
+strided dout), K1'/K2' also at edge shapes (S 1, 17, 1024) with their
+negative controls and on misaligned rows, the autograd.Functions' launches, K5' (the resident
 layout's forward and backward, against the plain version and bit for bit
 against K3'/K4' on the same values regrouped), K6' (the fused denoise loop),
 and the MLP dropout under remat on the card. Marked gpu: they need a card and skip elsewhere. This file imports no JAX, so on a machine
@@ -23,6 +24,7 @@ from hma_tpu_torch.ops.diffusion_sampler import (
 )
 from hma_tpu_torch.ops.fused_attention import (
     FusedAttention,
+    attention_bwd_plain,
     fused_attention,
     fused_attention_bwd,
     fused_attention_bwd_plain,
@@ -126,6 +128,76 @@ def test_spatial_bwd_kernel_matches_plain(dtype, shape, causal):
     _assert_grads_match(fused_attention_bwd(q, k, v, out, lse, dout, causal),
                         fused_attention_bwd_plain(q, k, v, out, lse, dout, causal),
                         tol)
+
+
+# K1'/K2' edge shapes: one key, a partial 16-row and 8-key fragment, 16 key
+# tiles; causal and not, D 32 and 64 (as chip_smoke.py's SPATIAL_EDGES)
+SPATIAL_EDGES = [((2, 1, 2, 32), False), ((2, 1, 2, 64), True),
+                 ((2, 17, 3, 64), True), ((2, 17, 3, 32), False),
+                 ((1, 1024, 2, 32), True), ((1, 1024, 2, 64), False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("shape,causal", SPATIAL_EDGES)
+def test_spatial_kernel_edge_shapes(dtype, tol, shape, causal):
+    """K1' at the edge shapes; in bf16 the plain version without the bf16
+    rounding of the probs (the negative control) must differ from the plain
+    version on more than 1 % of outputs, but for one key, where p is 1."""
+    _need_card()
+    B, S, H, D = shape
+    q, k, v = _strided_qkv((B, S), H, D, dtype, seed=8)
+    out, lse = fused_attention(q, k, v, causal)
+    want, want_lse = fused_attention_plain(q, k, v, causal)
+    _assert_matches(out, lse, want, want_lse, tol)
+    if dtype == torch.bfloat16 and S > 1:
+        control = fused_attention_plain(q, k, v, causal, dtype=torch.float32)[0]
+        assert (control != want).float().mean().item() > 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", SPATIAL_EDGES)
+def test_spatial_bwd_kernel_edge_shapes(dtype, shape, causal):
+    """K2' at the edge shapes; in bf16 the plain backward that keeps p and ds
+    fp32 (the negative control) must differ on more than 1 % of dq, dk and
+    dv, but for one key (p is 1, ds 0)."""
+    _need_card()
+    B, S, H, D = shape
+    q, k, v = _strided_qkv((B, S), H, D, dtype, seed=9)
+    out, lse = fused_attention(q, k, v, causal)
+    dout = _strided_dout((B, S), H, D, dtype, seed=10)
+    tol = BWD_FP32_TOL if dtype == torch.float32 else BWD_BF16_TOL["K2'"]
+    want = fused_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    _assert_grads_match(fused_attention_bwd(q, k, v, out, lse, dout, causal), want, tol)
+    if dtype == torch.bfloat16 and S > 1:
+        control = attention_bwd_plain(q, k, v, out, lse, dout, causal, False)
+        for c, w in zip(control, want):
+            assert (c != w).float().mean().item() > 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, BWD_FP32_TOL)),
+                                       (torch.bfloat16, (4e-3, BWD_BF16_TOL["K2'"]))])
+def test_spatial_kernels_on_misaligned_rows(dtype, tol):
+    """Rows that do not start 16-byte aligned (views one element into a
+    buffer): K1' raises ValueError, and on copies equals the plain version on
+    the views; K2' copies a misaligned dout itself and equals the plain
+    backward."""
+    _need_card()
+    lead, H, D = (3, 77), 4, 64
+    n = 3 * 77 * H * D
+    g = torch.Generator("cuda").manual_seed(11)
+    flat = (torch.randn(3 * n + 1, generator=g, device="cuda") * 0.4).to(dtype)
+    q, k, v = flat[1:].view(*lead, 3, H, D).unbind(-3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention(q, k, v)
+    copies = [x.clone(memory_format=torch.contiguous_format) for x in (q, k, v)]
+    out, lse = fused_attention(*copies)
+    _assert_matches(out, lse, *fused_attention_plain(q, k, v), tol[0])
+    dout = torch.randn(n + 1, generator=g, device="cuda").to(dtype)[1:].view(*lead, H, D)
+    _assert_grads_match(fused_attention_bwd(*copies, out, lse, dout),
+                        fused_attention_bwd_plain(q, k, v, out, lse, dout), tol[1])
 
 
 @pytest.mark.gpu
