@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all thirteen)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all fourteen)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
   2. build: the seven CUDA sources from hma_tpu_torch/csrc with nvcc, one
      process each, with the build time, what `-Xptxas -v` reports and the
      HMMA (tensor-core) instructions of each kernel's SASS;
-  3. kernels against their plain PyTorch versions at the main path's shapes
-     and one ragged shape each, fp32 and bf16:
+  3. kernels against their plain PyTorch versions at the main paths' shapes
+     (phase 14's rollout and training shapes too) and one ragged shape
+     each, fp32 and bf16:
      - K1' (spatial) and K3' (temporal) forwards, out and lse. fp32: atol =
        rtol = 1e-5. bf16: lse to 1e-5, out to a limit per kernel (BF16_TOL)
        and at most 1 % of outputs differing from the plain version at all;
@@ -40,14 +41,21 @@ Phases, each failing the run on any error:
        alone, where the kernel must be K6_STEP_MARGIN times nearer to the
        plain version than two bf16 controls are: the plain version computed
        in fp32, and with each bias added before the product is rounded;
-     - K1' and K2' also at edge shapes (SPATIAL_EDGES: S 1, 17 and 1024,
-       causal and not, D 32 and 64; at S 1 no control applies, p being 1),
-       K3' and K4' at theirs (TEMPORAL_EDGES: T 1 and 16, a ragged last
-       site tile, 3 heads) and K5' at T 1 and 16 with a ragged S
-       (RESIDENT_EDGES), with the same limits and controls;
-     - K1'-K5' on rows one element past a 16-byte boundary: each forward
-       must raise ValueError and, on copies, equal the plain version; each
-       backward copies a misaligned dout itself;
+     - K1' and K2' also at edge shapes (SPATIAL_EDGES: S 1, 17, 320 and
+       1024, causal and not, D 32 and 64, the other cards' D 16 and 61, and
+       D 12, 20, 24, 27 and 40, in bf16 blocks of 2 and of 4 warps; at S 1
+       no control applies, p being 1), K3' and K4' at theirs
+       (TEMPORAL_EDGES: T 1, 12 and 16, a ragged last site tile, 3 heads,
+       D 16, 61, 12, 20, 24, 27 and 40 besides 32 and 64) and K5' at T 1, 12
+       and 16 with a ragged S (RESIDENT_EDGES, D 16, 61, 12, 20, 24 and 27
+       too), with the same limits and controls; every D but 16, 32 and 64
+       runs the ragged path (zero-padded to the next of them inside the
+       kernel);
+     - K1'-K5' on rows one element past a 16-byte boundary: at D 64 each
+       forward must raise ValueError and, on copies, equal the plain
+       version, and each backward copies a misaligned dout itself; at D 61
+       (views of a (..., 3, H, 61) projection) forward and backward take
+       the views as they are and equal the plain version;
      then kernel, plain and library times with CUDA events, device-bound
      (`cuda_ms`: a sleep queued before the start event holds the device
      until the host has enqueued every timed call, and the start event must
@@ -128,7 +136,23 @@ Phases, each failing the run on any error:
      kernels on the card against the plain versions on the CPU;
  13. entry point: `hma_tpu_torch.train_multi.main(["--model_type",
      "continuous", ...])` for a few steps of a 2-layer d512 STMAR card on a
-     synthetic latent dataset, then phase 10's generate from its checkpoint.
+     synthetic latent dataset, then phase 10's generate from its checkpoint;
+ 14. the four other shipped cards (OTHER_CARDS: magvit d128, D 16; magvit
+     d512, d_model 488, D 61; mar d128, D 16; mar d256, D 32) at full width
+     and depth with the 40-domain synthetic action fields and random
+     weights from seed 0: (i) the fp32 cached forward against the full
+     forward at B 1 (EXACT_TOL, MAR_EXACT_TOL) and a zeroed cache slot that
+     must exceed the limit; (ii) one bf16 training step at B 8 after a
+     warm-up (remat, the domain-sliced AdamW), in both temporal layouts but
+     on the magvit d128 card, finite, nothing skipped, with the launches of
+     `train_launches`; their counts fill the timed rows of these shapes;
+     (iii) one KV-cached rollout at B 8, bf16, 2 prompt + 2 generated
+     frames (MaskGIT: 2 steps at temperature 0; MAR: 16 x 100, no
+     guidance) with its K1' and K6' launches and its time a frame; the K1'
+     launches fill the timed row of the card's rollout shape (B 8) and the
+     mar cards' K6' launches phase 9's row (the denoise head is the same on
+     every mar card). Every launch count of (ii) and (iii) must land in a
+     record, so a main-path shape that phase 3 never checked fails the run.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -162,18 +186,37 @@ MISMATCH_LIMIT = 0.01
 EXACT_TOL = 1e-5  # fp32 cached-vs-full logits, 32 layers deep
 REPEATS = 3  # timed runs of each rollout
 # K1'/K2' edge shapes, checked untimed: one key (the negative controls
-# cannot apply: p is 1 exactly), a partial 16-row and 8-key fragment, and
-# 16 key tiles; causal and not, D 32 and 64
+# cannot apply: p is 1 exactly), a partial 16-row and 8-key fragment, 320
+# keys and 16 key tiles; causal and not, D 32 and 64, the d128 cards' D 16,
+# the magvit d512 card's D 61 (the ragged path, padded to 64), and the
+# ragged path at every padded width: D 12 (padded to 16), 20, 24 and 27
+# (to 32), 40 (to 64), with bf16 blocks of 2 warps (few blocks) and of 4
+# (B 40: 320 blocks)
 SPATIAL_EDGES = [((2, 1, 2, 32), False), ((2, 1, 2, 64), True),
                  ((2, 17, 3, 64), True), ((2, 17, 3, 32), False),
-                 ((1, 1024, 2, 32), True), ((1, 1024, 2, 64), False)]
+                 ((1, 1024, 2, 32), True), ((1, 1024, 2, 64), False),
+                 ((2, 1, 2, 16), True), ((2, 1, 2, 61), False),
+                 ((2, 17, 3, 16), False), ((2, 17, 3, 61), True),
+                 ((2, 320, 2, 16), True), ((2, 320, 2, 61), False),
+                 ((2, 320, 2, 61), True), ((3, 77, 4, 12), True),
+                 ((40, 128, 4, 12), False), ((2, 17, 3, 24), False),
+                 ((40, 128, 4, 24), True), ((3, 77, 4, 20), True),
+                 ((40, 128, 4, 27), False), ((3, 77, 2, 40), True)]
 # K3'/K4' edge shapes (N, T, H, D), checked untimed: one frame (no control
-# applies, p being 1), MAX_T frames, a last site tile left ragged (N H not a
-# multiple of the tile's rows), 3 heads; D 32 and 64
-TEMPORAL_EDGES = [(77, 1, 8, 32), (77, 16, 8, 64), (45, 16, 3, 32), (45, 1, 3, 64)]
-# K5' edge shapes (B, T, S, H, D): one frame and MAX_T frames, with an S
-# that leaves the last site tile ragged
-RESIDENT_EDGES = [(2, 1, 11, 8, 64), (2, 16, 13, 3, 32)]
+# applies, p being 1), 12 and MAX_T frames, a last site tile left ragged (N H
+# not a multiple of the tile's rows), 3 heads; D 32, 64, 16, 61, and the
+# ragged path at every padded width: D 12, 20, 24, 27 and 40
+TEMPORAL_EDGES = [(77, 1, 8, 32), (77, 16, 8, 64), (45, 16, 3, 32), (45, 1, 3, 64),
+                  (77, 1, 8, 16), (45, 12, 3, 16), (45, 16, 3, 16),
+                  (77, 1, 8, 61), (45, 12, 3, 61), (45, 16, 3, 61), (45, 5, 3, 12),
+                  (45, 12, 3, 24), (77, 16, 8, 20), (45, 5, 3, 27), (45, 12, 3, 40)]
+# K5' edge shapes (B, T, S, H, D): one frame, 12 and MAX_T frames, with an S
+# that leaves the last site tile ragged; D 64, 32, 16, 61, and the ragged
+# path at DP 16 and 32: D 12, 20, 24 and 27
+RESIDENT_EDGES = [(2, 1, 11, 8, 64), (2, 16, 13, 3, 32), (2, 1, 11, 8, 16),
+                  (2, 16, 13, 3, 61), (2, 12, 13, 3, 16), (2, 12, 11, 8, 61),
+                  (3, 5, 7, 3, 12), (2, 12, 13, 3, 24), (2, 16, 11, 8, 20),
+                  (3, 5, 7, 3, 27)]
 # Backward limits on dq, dk, dv. fp32: on an H100 (700 W) K2' reads 0 (the
 # plain version's cuBLAS sums in the kernel's order) and K4' 7e-7 of
 # max |g|. bf16, atol = rtol: about twice what the H100 readings need, a
@@ -558,11 +601,20 @@ def kernel_phase():
     def unrounded_probs(q, k, v, causal):  # K1''s control
         return fused_attention_plain(q, k, v, causal, dtype=torch.float32)[0]
 
-    # main-path shapes (timed): the d256 card's, then the d512 STMAR card's
+    # main-path shapes (timed): the d256 card's, the d512 STMAR card's, then
+    # the four other cards' (phase 14): magvit d128, magvit d512 (d_model
+    # 488, D 61), mar d128, mar d256, each card's cached rollout at B 8 and
+    # its training step at B 8 x T 12 in the transpose layout
     spatial = [((8, 320, 8, 32), False, True), ((96, 320, 8, 32), False, True),
                ((8, 128, 8, 64), False, True), ((96, 128, 8, 64), False, True),
+               ((8, 320, 8, 16), False, True), ((8, 320, 8, 61), False, True),
+               ((8, 128, 8, 16), False, True), ((8, 128, 8, 32), False, True),
+               ((96, 320, 8, 16), False, True), ((96, 320, 8, 61), False, True),
+               ((96, 128, 8, 16), False, True), ((96, 128, 8, 32), False, True),
                ((3, 77, 4, 64), True, False)] + [(s, c, False) for s, c in SPATIAL_EDGES]
     temporal = [((2560, 12, 8, 32), True), ((1024, 12, 8, 64), True),
+                ((2560, 12, 8, 16), True), ((2560, 12, 8, 61), True),
+                ((1024, 12, 8, 16), True), ((1024, 12, 8, 32), True),
                 ((1000, 5, 3, 64), False)] + [(s, False) for s in TEMPORAL_EDGES]
     cases = ([("K1'", s, c, main) for s, c, main in spatial]
              + [("K3'", s, True, main) for s, main in temporal])
@@ -596,9 +648,13 @@ def kernel_phase():
 
     # backward kernels, from the forward kernel's out and lse
     bwd_cases = [("K2'", (96, 320, 8, 32), False, True), ("K2'", (96, 128, 8, 64), False, True),
+                 ("K2'", (96, 320, 8, 16), False, True), ("K2'", (96, 320, 8, 61), False, True),
+                 ("K2'", (96, 128, 8, 16), False, True), ("K2'", (96, 128, 8, 32), False, True),
                  ("K2'", (3, 77, 4, 64), True, False),
                  *(("K2'", s, c, False) for s, c in SPATIAL_EDGES),
                  ("K4'", (2560, 12, 8, 32), True, True), ("K4'", (1024, 12, 8, 64), True, True),
+                 ("K4'", (2560, 12, 8, 16), True, True), ("K4'", (2560, 12, 8, 61), True, True),
+                 ("K4'", (1024, 12, 8, 16), True, True), ("K4'", (1024, 12, 8, 32), True, True),
                  ("K4'", (1000, 5, 3, 64), True, False),
                  *(("K4'", s, True, False) for s in TEMPORAL_EDGES)]
     for name, shape, causal, main in bwd_cases:
@@ -643,10 +699,13 @@ def kernel_phase():
 
 def misaligned_check():
     """Phase 3: K1'-K5' on rows that do not start 16-byte aligned. q, k, v
-    as views one element into a buffer: the forward raises ValueError (its
-    cp.async copies need aligned rows); on copies of them it equals the
-    plain version on the views. dout misaligned: the backward copies it
-    first and equals the plain version."""
+    as views one element into a buffer: at D 64 the forward raises
+    ValueError (its cp.async copies need aligned rows); on copies of them it
+    equals the plain version on the views. dout misaligned: the backward
+    copies it first and equals the plain version. At D 61 (the ragged path,
+    which copies each row's covering 16-byte-aligned chunks and shifts the
+    row into place in shared memory) the forward and the backward take the
+    views as they are and equal the plain version."""
     import torch
 
     from hma_tpu_torch.ops.fused_attention import (
@@ -683,8 +742,9 @@ def misaligned_check():
         ("K5'", (2, 5, 7), fused_temporal_attention_resident, temporal_resident_plain,
          resident_control_fwd, slots(fused_temporal_attention_resident_bwd),
          slots(temporal_resident_bwd_plain), resident_control_bwd)]
-    H, D = 4, 64
-    for name, lead, fwd, plain, control, bwd, bwd_plain, bwd_control in cases:
+    H = 4
+    for (name, lead, fwd, plain, control, bwd, bwd_plain, bwd_control), D in (
+            (c, D) for c in cases for D in (64, 61)):
         n = math.prod(lead) * H * D
         spatial = name == "K1'/K2'"
         for dtype in (torch.float32, torch.bfloat16):
@@ -695,6 +755,13 @@ def misaligned_check():
             flat = (torch.randn(3 * n + 1, generator=g, device="cuda") * 0.4).to(dtype)
             q, k, v = flat[1:].view(*lead, 3, H, D).unbind(-3)
             label = f"{name} misaligned {(*lead, H, D)} {dtype}"
+            dout = torch.randn(n + 1, generator=g, device="cuda").to(dtype)[1:].view(*lead, H, D)
+            if D == 61:  # the ragged path reads the views as they are
+                check_kernel(fwd, plain, control, (q, k, v), tol, label + " fwd on the views")
+                out, lse = fwd(q, k, v)
+                check_bwd(bwd, bwd_plain, bwd_control, (q, k, v, out, lse, dout), bwd_tol,
+                          label + " bwd on the views, dout misaligned")
+                continue
             try:
                 fwd(q, k, v)
                 raised = "nothing"
@@ -706,7 +773,6 @@ def misaligned_check():
             check_kernel(lambda q, k, v: fwd(*copy(q, k, v)), plain, control, (q, k, v),
                          tol, label + " fwd on copies")
             out, lse = fwd(*copy(q, k, v))
-            dout = torch.randn(n + 1, generator=g, device="cuda").to(dtype)[1:].view(*lead, H, D)
             check_bwd(lambda *a: bwd(*copy(*a[:3]), *a[3:]), bwd_plain, bwd_control,
                       (q, k, v, out, lse, dout), bwd_tol, label + " bwd, dout misaligned")
 
@@ -767,8 +833,9 @@ def resident_kernel_phase():
         return tuple(from_sites(g, B, S) for g in grads)
 
     records = []
-    for shape, main in (((8, 12, 128, 8, 64), True), ((3, 5, 7, 3, 32), False),
-                        *((s, False) for s in RESIDENT_EDGES)):
+    for shape, main in (((8, 12, 128, 8, 64), True), ((8, 12, 320, 8, 61), True),
+                        ((8, 12, 128, 8, 16), True), ((8, 12, 128, 8, 32), True),
+                        ((3, 5, 7, 3, 32), False), *((s, False) for s in RESIDENT_EDGES)):
         B, T, S, H, D = shape
         errs, bwd_errs = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -1937,13 +2004,197 @@ def mar_train_entry_phase():
         check_generate_feature(tmp / "run", data, tmp / "gen", cfg)
 
 
+# Phase 14: the four shipped cards that phases 4-13 do not run, and the
+# temporal layouts each one's training step runs in
+OTHER_CARDS = {"magvit_n32_h8_d128_action.json": ("transpose",),
+               "magvit_n32_h8_d512_action.json": ("transpose", "resident"),
+               "mar_n32_h8_d128_action.json": ("transpose", "resident"),
+               "mar_n32_h8_d256_action.json": ("transpose", "resident")}
+
+
+def card_config(name: str, num_domains: int = 40):
+    """A shipped card from hma_tpu_torch/configs plus the synthetic action
+    fields of `with_synthetic_domains`."""
+    from hma_tpu_torch.config import load_config
+
+    return with_synthetic_domains(load_config(str(ROOT / "hma_tpu_torch" / "configs" / name)),
+                                  num_domains)
+
+
+def other_cards_phase(records):
+    """Phase 14: each of OTHER_CARDS at full width and depth, 40 synthetic
+    domains, random weights from seed 0: (i) the fp32 cached forward held
+    to the full forward at B 1 (EXACT_TOL for logits, MAR_EXACT_TOL for
+    latents) and a zeroed cache slot that must exceed the limit; (ii) one
+    bf16 training step at B 8 after a warm-up step (remat, the domain-sliced
+    AdamW) in each of the card's temporal layouts, finite, nothing skipped,
+    the launches of train_launches; (iii) one KV-cached rollout at B 8 in
+    bf16, 2 prompt and 2 generated frames (MaskGIT: 2 steps at temperature
+    0; MAR: the card's 16 x 100 steps, no guidance) after a warm-up one,
+    with its K1', K3' and K6' launches and its time a frame."""
+    import torch
+
+    for name, layouts in OTHER_CARDS.items():
+        t0 = time.perf_counter()
+        other_card(name, layouts, records)
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def other_card(name, layouts, records):
+    import torch
+
+    from hma_tpu_torch.config import DiffusionGenieConfig
+    from hma_tpu_torch.models.st_mar import STMAR, patchify
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.rollout.mar import generate_latents
+    from hma_tpu_torch.rollout.maskgit import generate_tokens
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    cfg = card_config(name)
+    mar = isinstance(cfg, DiffusionGenieConfig)
+    Model = STMAR if mar else STMaskGIT
+    B, T, L, H = 8, cfg.T, cfg.num_layers, cfg.num_heads
+    hd = cfg.d_model // H
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                  generator=torch.Generator("cuda").manual_seed(0))
+    S_tot = (model.seq_len if mar else cfg.S) + cfg.action_token_size
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {name}: {n_params / 1e6:.1f}M params, d_model {cfg.d_model}, {H} heads of "
+          f"{hd}, {L} layers, {S_tot} tokens a frame", flush=True)
+    rng = np.random.default_rng(0)
+    if mar:
+        lat, actions = mar_data(cfg, B)
+    else:
+        tokens = torch.from_numpy(rng.integers(0, cfg.image_vocab_size, (B, T, cfg.S))).cuda()
+        actions = torch.from_numpy(rng.normal(size=(B, T, cfg.max_d_action))
+                                   .astype(np.float32)).cuda()
+
+    # (i) the fp32 cached forward against the full forward at B 1
+    model32 = Model(cfg, dtype=torch.float32, device="cuda").eval()
+    model32.load_state_dict(model.state_dict())
+    tol = MAR_EXACT_TOL if mar else EXACT_TOL
+    with torch.no_grad():
+        if mar:
+            x = patchify(lat[:1], cfg.patch_size).flatten(2, 3)
+            full, _ = model32.compute_latents(x, actions[:1], 0)
+            want = [full[:, t] for t in range(T)]
+
+            def frame(t, k, v, **kw):
+                return model32.frame_latents(x[:, t], t, k, v, actions[:1], 0, **kw)[0]
+        else:
+            x = tokens[:1]
+            full, _ = model32.compute_logits(x, actions[:1], 0)
+            want = [full[:, :, t].reshape(1, 2, -1, cfg.S).permute(0, 3, 1, 2)
+                    for t in range(T)]
+
+            def frame(t, k, v, **kw):
+                return model32.frame_logits(x[:, t], t, k, v, actions[:1], 0, **kw)[0]
+        k, v = model32.init_cache(1)
+        worst = max((frame(t, k, v) - want[t]).abs().max().item() for t in range(T))
+        k[:, :, T - 2] = 0
+        v[:, :, T - 2] = 0  # frame T-2's slot left unwritten
+        planted = (frame(T - 1, k, v, update_cache=False) - want[T - 1]).abs().max().item()
+    print(f"  (i) fp32 cached vs full forward, {T} frames, B=1: max abs err {worst:.3e} "
+          f"(tol {tol}, max |out| {full.abs().max().item():.2f}); planted fault, slot "
+          f"t-1 zeroed: {planted:.3e}", flush=True)
+    require(math.isfinite(worst) and worst <= tol, f"{name}: cached path not exact")
+    require(planted > tol, f"{name}: the exactness limit misses a zeroed cache slot")
+    del model32, full, k, v, want
+
+    # (ii) one bf16 training step after a warm-up, in each temporal layout
+    mask = stacked_param_mask(model, cfg)
+    tx = make_domain_sliced_optimizer(model, 1e-4, stacked_mask=mask,
+                                      num_domains=cfg.num_domains)
+    kw = dict(continuous=True, action_loss_weight=cfg.action_loss_weight) if mar else {}
+    step = make_train_step(model.train(), tx, **kw)
+    batch = mar_batch(cfg, B, "cuda") if mar else train_batch(cfg, B, "cuda")
+    for i, layout in enumerate(layouts):
+        for block in model.decoder.layers:
+            block.temporal_layout = layout
+        step(batch, rng=100 * i)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(batch, rng=100 * i + 1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        want = train_launches(L, layout)
+        print(f"  (ii) [{layout}] bf16 training step, B={B}: {secs:.4f} s, loss "
+              f"{m['loss'].item():.4f}, grad norm {m['grad_norm'].item():.4f}, skipped "
+              f"{m['skipped'].item():.0f}; launches {counts}", flush=True)
+        require(math.isfinite(m["loss"].item()) and math.isfinite(m["grad_norm"].item()),
+                f"{name} [{layout}]: training step not finite")
+        require(m["skipped"].item() == 0.0, f"{name} [{layout}]: the step was skipped")
+        require(counts == want, f"{name} [{layout}]: launches {counts}, want {want}")
+        rows = {("K1'", (B * T, S_tot, H, hd)): counts["K1'"],
+                ("K2'", (B * T, S_tot, H, hd)): counts["K2'"],
+                ("K3'", (B * S_tot, T, H, hd)): counts["K3'"],
+                ("K4'", (B * S_tot, T, H, hd)): counts["K4'"],
+                ("K5' fwd", (B, T, S_tot, H, hd)): counts["K5' fwd"],
+                ("K5' bwd", (B, T, S_tot, H, hd)): counts["K5' bwd"]}
+        set_launches(records, {key: n for key, n in rows.items() if n}, add=True)
+    del tx, step, batch
+    model.eval()
+
+    # (iii) one KV-cached rollout, 2 prompt and 2 generated frames
+    P, W = 2, 4
+    if mar:
+        def go():
+            return generate_latents(model, lat[:, :W], P, actions[:, :W], 0,
+                                    torch.Generator("cuda").manual_seed(1),
+                                    maskgit_steps=cfg.maskgit_steps)
+        steps = cfg.maskgit_steps
+    else:
+        def go():
+            return generate_tokens(model, tokens[:, :W], P, actions[:, :W], 0,
+                                   torch.Generator("cuda").manual_seed(1), maskgit_steps=2,
+                                   temperature=0.0, unmask_mode="random")
+        steps = 2
+    with torch.no_grad():
+        go()  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = go()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    frames = B * (W - P)
+    print(f"  (iii) cached rollout, B={B}, {P} prompt + {W - P} generated frames, "
+          f"{steps} MaskGIT steps{' x ' + str(cfg.num_sampling_steps) + ' denoise' if mar else ''}: "
+          f"{secs:.4f} s, {1e3 * secs / frames:.2f} ms a frame ({frames / secs:.2f} frames/s); "
+          "launches " + ", ".join(f"{k}={counts[k]}" for k in ("K1'", "K3'", "K6'")),
+          flush=True)
+    prompt = lat if mar else tokens
+    require(torch.equal(out[:, :P], prompt[:, :P]), f"{name}: prompt frames changed")
+    if mar:
+        require(out.shape == lat[:, :W].shape and bool(torch.isfinite(out).all())
+                and bool((out[:, P:] != lat[:, P:W]).any()), f"{name}: rollout output")
+    else:
+        require(bool(((out >= 0) & (out < cfg.image_vocab_size)).all()),
+                f"{name}: tokens out of range")
+    forwards = P + (W - P) * (steps + 1)
+    require(counts["K1'"] == forwards * L and counts["K3'"] == 0
+            and counts["K6'"] == ((W - P) * steps if mar else 0),
+            f"{name}: rollout launches {counts}")
+    rows = {("K1'", (B, S_tot, H, hd)): counts["K1'"]}
+    if mar:  # the denoise head does not depend on d_model: phase 9's shape
+        rows[("K6'", (100, B * 6, model.patch_dim, cfg.diffloss_w,
+                       cfg.diffloss_d))] = counts["K6'"]
+    set_launches(records, rows, add=True)
+    del model
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 14)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 15)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -1979,7 +2230,8 @@ def main(argv=None) -> int:
               lambda: mar_training_phase(records)),
              (12, "STMAR gradient exactness, card vs CPU, both layouts", mar_exactness_phase),
              (13, "entry point: train_multi --model_type continuous, then generate",
-              mar_train_entry_phase)]
+              mar_train_entry_phase),
+             (14, "the four other shipped cards", lambda: other_cards_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()
@@ -1987,7 +2239,7 @@ def main(argv=None) -> int:
             run()
             print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if {3, 4, 6, 9, 11} <= phases:  # every kernel of the main paths was launched
+    if {3, 4, 6, 9, 11, 14} <= phases:  # every kernel of the main paths was launched
         for r in records:
             require(r["launches"], f"{r['name']} {r['shape']} never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -44,11 +44,21 @@
 // thread per query (a) or key (b) row, tiles held as fp32 in shared memory
 // and read as warp-wide broadcasts.
 //
+// Head dims: as K1' (fused_attention_fwd.cu): the bodies are templates on the
+// width D they run at (16, 32 or 64); any other head dim D_true up to 64
+// takes the ragged path: rows staged as their covering 16-byte-aligned
+// chunks by cp.async and shifted into place with zero-filled columns (the
+// reads stay inside each row's 16-byte-aligned extent), delta's out rows
+// read element by element, and only the D_true real columns of dq, dk, dv
+// stored.
+//
 // C entry point: hma_fused_attention_bwd, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -67,13 +77,15 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Stage rows [r0, r0 + KT) of one (b, h) into dst as fp32; rows past n are 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float (*dst)[D], const T* __restrict__ src,
-                                          long long row_stride, int r0, int n) {
-  for (int i = threadIdx.x; i < KT * D; i += ROWS) {
-    const int r = i / D, d = i % D;
-    dst[r][d] = (r0 + r < n) ? to_f(src[(long long)(r0 + r) * row_stride + d]) : 0.f;
+// Stage rows [r0, r0 + KT) of one (b, h) into dst as fp32 rows of DP; rows
+// past n and (ragged) columns past D are 0.
+template <typename T, int DP, bool RAGGED>
+__device__ __forceinline__ void load_tile(float (*dst)[DP], const T* __restrict__ src,
+                                          long long row_stride, int r0, int n, int D) {
+  for (int i = threadIdx.x; i < KT * DP; i += ROWS) {
+    const int r = i / DP, d = i % DP;
+    dst[r][d] = (r0 + r < n && (!RAGGED || d < D))
+                    ? to_f(src[(long long)(r0 + r) * row_stride + d]) : 0.f;
   }
 }
 
@@ -111,12 +123,12 @@ struct Strides {  // (batch, row, head) strides in elements
 };
 
 // (a): dq and delta, one thread per query row
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 __global__ void __launch_bounds__(ROWS)
 spatial_attention_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ out, const float* __restrict__ lse, const T* __restrict__ dout,
-    T* __restrict__ dq, float* __restrict__ delta, int S, int H, int causal,
+    T* __restrict__ dq, float* __restrict__ delta, int S, int H, int D_true, int causal,
     Strides qs, Strides ks_, Strides vs_, Strides os, Strides ds_) {
   __shared__ __align__(16) float ks[KT][D];
   __shared__ __align__(16) float vs[KT][D];
@@ -124,6 +136,7 @@ spatial_attention_bwd_dq_kernel(
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * ROWS + threadIdx.x;
   const bool live = row < S;
+  const int Dn = RAGGED ? D_true : D;  // the row's real elements
   const long long bh = (long long)b * H + h;
   const T* qr_p = q + b * qs.b + h * qs.h + (long long)row * qs.s;
   const T* or_p = out + b * os.b + h * os.h + (long long)row * os.s;
@@ -135,9 +148,10 @@ spatial_attention_bwd_dq_kernel(
   float dl = 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = live ? to_f(qr_p[d]) : 0.f;
-    dr[d] = live ? to_f(dr_p[d]) : 0.f;
-    dl = fmaf(dr[d], live ? to_f(or_p[d]) : 0.f, dl);
+    const bool in = live && d < Dn;
+    qr[d] = in ? to_f(qr_p[d]) : 0.f;
+    dr[d] = in ? to_f(dr_p[d]) : 0.f;
+    dl = fmaf(dr[d], in ? to_f(or_p[d]) : 0.f, dl);
   }
   const float l = live ? lse[bh * S + row] : 0.f;
   if (live) delta[bh * S + row] = dl;
@@ -151,8 +165,8 @@ spatial_attention_bwd_dq_kernel(
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   for (int j0 = 0; j0 < n_keys; j0 += KT) {
     __syncthreads();
-    load_tile<T, D>(ks, kb, ks_.s, j0, n_keys);
-    load_tile<T, D>(vs, vb, vs_.s, j0, n_keys);
+    load_tile<T, D, RAGGED>(ks, kb, ks_.s, j0, n_keys, Dn);
+    load_tile<T, D, RAGGED>(vs, vb, vs_.s, j0, n_keys, Dn);
     __syncthreads();
     const int jn = min(KT, min(n_keys, last_key + 1) - j0);
     if (live) {
@@ -164,20 +178,21 @@ spatial_attention_bwd_dq_kernel(
     }
   }
   if (live) {
-    T* o = dq + (((long long)b * S + row) * H + h) * D;
+    T* o = dq + (((long long)b * S + row) * H + h) * Dn;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = from_f<T>(acc[d]);
+    for (int d = 0; d < D; ++d)
+      if (d < Dn) o[d] = from_f<T>(acc[d]);
   }
 }
 
 // (b): dk and dv, one thread per key row
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 __global__ void __launch_bounds__(ROWS)
 spatial_attention_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ lse, const T* __restrict__ dout,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int H, int causal, Strides qs_, Strides ks, Strides vs, Strides ds_) {
+    int S, int H, int D_true, int causal, Strides qs_, Strides ks, Strides vs, Strides ds_) {
   __shared__ __align__(16) float qs[KT][D];
   __shared__ __align__(16) float dos[KT][D];
   __shared__ float ls[KT];
@@ -186,6 +201,7 @@ spatial_attention_bwd_dkdv_kernel(
   const int b = blockIdx.z, h = blockIdx.y;
   const int key = blockIdx.x * ROWS + threadIdx.x;
   const bool live = key < S;
+  const int Dn = RAGGED ? D_true : D;  // the row's real elements
   const long long bh = (long long)b * H + h;
   const T* kr_p = k + b * ks.b + h * ks.h + (long long)key * ks.s;
   const T* vr_p = v + b * vs.b + h * vs.h + (long long)key * vs.s;
@@ -195,8 +211,8 @@ spatial_attention_bwd_dkdv_kernel(
   float kr[D], vr[D], dka[D], dva[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    kr[d] = live ? to_f(kr_p[d]) : 0.f;
-    vr[d] = live ? to_f(vr_p[d]) : 0.f;
+    kr[d] = live && d < Dn ? to_f(kr_p[d]) : 0.f;
+    vr[d] = live && d < Dn ? to_f(vr_p[d]) : 0.f;
     dka[d] = 0.f;
     dva[d] = 0.f;
   }
@@ -205,8 +221,8 @@ spatial_attention_bwd_dkdv_kernel(
   const int i_start = causal ? blockIdx.x * ROWS : 0;
   for (int i0 = i_start; i0 < S; i0 += KT) {
     __syncthreads();
-    load_tile<T, D>(qs, qb, qs_.s, i0, S);
-    load_tile<T, D>(dos, db, ds_.s, i0, S);
+    load_tile<T, D, RAGGED>(qs, qb, qs_.s, i0, S, Dn);
+    load_tile<T, D, RAGGED>(dos, db, ds_.s, i0, S, Dn);
     for (int i = threadIdx.x; i < KT; i += ROWS) {
       ls[i] = (i0 + i < S) ? lse[bh * S + i0 + i] : 0.f;
       dls[i] = (i0 + i < S) ? delta[bh * S + i0 + i] : 0.f;
@@ -224,35 +240,36 @@ spatial_attention_bwd_dkdv_kernel(
     }
   }
   if (live) {
-    const long long o = (((long long)b * S + key) * H + h) * D;
+    const long long o = (((long long)b * S + key) * H + h) * Dn;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
+      if (d >= Dn) continue;
       dk[o + d] = from_f<T>(dka[d]);
       dv[o + d] = from_f<T>(dva[d]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                   void* delta, int B, int S, int H, int causal, const long long* st,
-                   cudaStream_t stream) {
+                   void* delta, int B, int S, int H, int D_true, int causal,
+                   const long long* st, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]}, sd{st[12], st[13], st[14]};
   const dim3 grid((S + ROWS - 1) / ROWS, H, B);
-  spatial_attention_bwd_dq_kernel<T, D><<<grid, ROWS, 0, stream>>>(
+  spatial_attention_bwd_dq_kernel<T, D, RAGGED><<<grid, ROWS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(out), static_cast<const float*>(lse),
       static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<float*>(delta),
-      S, H, causal, sq, sk, sv, so, sd);
+      S, H, D_true, causal, sq, sk, sv, so, sd);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  spatial_attention_bwd_dkdv_kernel<T, D><<<grid, ROWS, 0, stream>>>(
+  spatial_attention_bwd_dkdv_kernel<T, D, RAGGED><<<grid, ROWS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, causal, sq, sk, sv, sd);
+      S, H, D_true, causal, sq, sk, sv, sd);
   return cudaGetLastError();
 }
 
@@ -262,12 +279,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 using bf16 = __nv_bfloat16;
 
 // (a): dq and delta, 16 query rows a warp
-template <int D, int WARPS>
+template <int D, int WARPS, bool RAGGED>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_attention_bwd_dq_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ out, const float* __restrict__ lse, const bf16* __restrict__ dout,
-    bf16* __restrict__ dq, float* __restrict__ delta, int S, int H, int causal,
+    bf16* __restrict__ dq, float* __restrict__ delta, int S, int H, int D_true, int causal,
     Strides sq, Strides sk, Strides sv, Strides so, Strides sd) {
   using namespace hma_mma;
   constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS, P = D + 8;
@@ -280,21 +297,31 @@ spatial_attention_bwd_dq_bf16(
   const long long bh = (long long)b * H + h;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
+  const int Dn = RAGGED ? D_true : D;  // the row's real elements
   const int n_keys = causal ? min(S, q0 + ROWS) : S;
   const int n_tiles = (n_keys + KT - 1) / KT;
   const int row = q0 + warp * 16 + g;  // and row + 8
   const int lim[2] = {causal ? min(row + 1, S) : S, causal ? min(row + 9, S) : S};
 
   auto issue = [&](int j) {
-    load_rows<KT, D, THREADS>(ks[j & 1], kb, sk.s, j * KT, n_keys);
-    load_rows<KT, D, THREADS>(vs[j & 1], vb, sv.s, j * KT, n_keys);
+    stage_rows<KT, D, THREADS, RAGGED>(ks[j & 1], kb, sk.s, j * KT, n_keys, Dn);
+    stage_rows<KT, D, THREADS, RAGGED>(vs[j & 1], vb, sv.s, j * KT, n_keys, Dn);
     cp_async_commit();
   };
-  load_rows<ROWS, D, THREADS>(ks[1], q + b * sq.b + h * sq.h, sq.s, q0, S);
-  load_rows<ROWS, D, THREADS>(vs[1], dout + b * sd.b + h * sd.h, sd.s, q0, S);
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* db = dout + b * sd.b + h * sd.h;
+  stage_rows<ROWS, D, THREADS, RAGGED>(ks[1], qb, sq.s, q0, S, Dn);
+  stage_rows<ROWS, D, THREADS, RAGGED>(vs[1], db, sd.s, q0, S, Dn);
   issue(0);
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (RAGGED) {  // move the copied rows into place
+    realign<ROWS, D, THREADS, RAGGED>(ks[1], qb, sq.s, q0, S, Dn);
+    realign<ROWS, D, THREADS, RAGGED>(vs[1], db, sd.s, q0, S, Dn);
+    realign<KT, D, THREADS, RAGGED>(ks[0], kb, sk.s, 0, n_keys, Dn);
+    realign<KT, D, THREADS, RAGGED>(vs[0], vb, sv.s, 0, n_keys, Dn);
+    __syncthreads();
+  }
   uint32_t qa[D / 16][4], da[D / 16][4];
   load_a_frags<D>(qa, ks[1], warp * 16);
   load_a_frags<D>(da, vs[1], warp * 16);
@@ -308,9 +335,10 @@ spatial_attention_bwd_dq_bf16(
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int r = q0 + warp * 16 + nt * 8 + g;
-      const bf16* orow = ob + (r < S ? (long long)r * so.s : 0) + kc * 16 + 2 * t;
-      const uint32_t b0 = r < S ? *reinterpret_cast<const uint32_t*>(orow) : 0u;
-      const uint32_t b1 = r < S ? *reinterpret_cast<const uint32_t*>(orow + 8) : 0u;
+      const bf16* orow = ob + (r < S ? (long long)r * so.s : 0);
+      const int col = kc * 16 + 2 * t;
+      const uint32_t b0 = r < S ? load_pair<RAGGED>(orow, col, Dn) : 0u;
+      const uint32_t b1 = r < S ? load_pair<RAGGED>(orow, col + 8, Dn) : 0u;
       mma16816(dd[nt], da[kc], b0, b1);
     }
   // (g, g) sits in n-tile 0 and (g + 8, g + 8) in n-tile 1, both on the lane
@@ -334,6 +362,11 @@ spatial_attention_bwd_dq_bf16(
     cp_async_wait<1>();
     __syncthreads();
     const int buf = j & 1;
+    if (RAGGED && j > 0) {  // tile 0 was moved into place above
+      realign<KT, D, THREADS, RAGGED>(ks[buf], kb, sk.s, j * KT, n_keys, Dn);
+      realign<KT, D, THREADS, RAGGED>(vs[buf], vb, sv.s, j * KT, n_keys, Dn);
+      __syncthreads();
+    }
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       const int key0 = j * KT + kc * 16;
@@ -359,17 +392,18 @@ spatial_attention_bwd_dq_bf16(
     }
     __syncthreads();  // the next tile refills this buffer
   }
-  store_c<D>(dq + (b * (long long)S * H + h) * D, (long long)H * D, acc, q0 + warp * 16, S);
+  store_c<D, RAGGED>(dq + (b * (long long)S * H + h) * Dn, (long long)H * Dn, acc,
+                     q0 + warp * 16, S, Dn);
 }
 
 // (b): dk and dv, 16 key rows a warp
-template <int D, int WARPS>
+template <int D, int WARPS, bool RAGGED>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_attention_bwd_dkdv_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ lse, const bf16* __restrict__ dout,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int S, int H, int causal, Strides sq, Strides sk, Strides sv, Strides sd) {
+    int S, int H, int D_true, int causal, Strides sq, Strides sk, Strides sv, Strides sd) {
   using namespace hma_mma;
   constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS, P = D + 8;
   // buffer 1 of the ring first holds the block's k and v rows
@@ -383,6 +417,7 @@ spatial_attention_bwd_dkdv_bf16(
   const long long bh = (long long)b * H + h;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* db = dout + b * sd.b + h * sd.h;
+  const int Dn = RAGGED ? D_true : D;  // the row's real elements
   // causal: only queries i >= key see a key; tiles wholly before k0 are skipped
   const int i_start = causal ? k0 / KT * KT : 0;
   const int n_tiles = (S - i_start + KT - 1) / KT;
@@ -390,17 +425,26 @@ spatial_attention_bwd_dkdv_bf16(
 
   auto issue = [&](int i) {
     const int i0 = i_start + i * KT, buf = i & 1;
-    load_rows<KT, D, THREADS>(qs[buf], qb, sq.s, i0, S);
-    load_rows<KT, D, THREADS>(dos[buf], db, sd.s, i0, S);
+    stage_rows<KT, D, THREADS, RAGGED>(qs[buf], qb, sq.s, i0, S, Dn);
+    stage_rows<KT, D, THREADS, RAGGED>(dos[buf], db, sd.s, i0, S, Dn);
     load_floats<KT, THREADS>(lss[buf], lse + bh * S, i0, S);
     load_floats<KT, THREADS>(dls[buf], delta + bh * S, i0, S);
     cp_async_commit();
   };
-  load_rows<ROWS, D, THREADS>(qs[1], k + b * sk.b + h * sk.h, sk.s, k0, S);
-  load_rows<ROWS, D, THREADS>(dos[1], v + b * sv.b + h * sv.h, sv.s, k0, S);
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  stage_rows<ROWS, D, THREADS, RAGGED>(qs[1], kb, sk.s, k0, S, Dn);
+  stage_rows<ROWS, D, THREADS, RAGGED>(dos[1], vb, sv.s, k0, S, Dn);
   issue(0);
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (RAGGED) {  // move the copied rows into place
+    realign<ROWS, D, THREADS, RAGGED>(qs[1], kb, sk.s, k0, S, Dn);
+    realign<ROWS, D, THREADS, RAGGED>(dos[1], vb, sv.s, k0, S, Dn);
+    realign<KT, D, THREADS, RAGGED>(qs[0], qb, sq.s, i_start, S, Dn);
+    realign<KT, D, THREADS, RAGGED>(dos[0], db, sd.s, i_start, S, Dn);
+    __syncthreads();
+  }
   uint32_t ka[D / 16][4], va[D / 16][4];
   load_a_frags<D>(ka, qs[1], warp * 16);
   load_a_frags<D>(va, dos[1], warp * 16);
@@ -413,6 +457,11 @@ spatial_attention_bwd_dkdv_bf16(
     cp_async_wait<1>();
     __syncthreads();
     const int buf = i & 1, i0 = i_start + i * KT;
+    if (RAGGED && i > 0) {  // tile 0 was moved into place above
+      realign<KT, D, THREADS, RAGGED>(qs[buf], qb, sq.s, i0, S, Dn);
+      realign<KT, D, THREADS, RAGGED>(dos[buf], db, sd.s, i0, S, Dn);
+      __syncthreads();
+    }
 #pragma unroll
     for (int qc = 0; qc < 4; ++qc) {
       const int c0 = qc * 16, q_first = i0 + c0;
@@ -447,45 +496,45 @@ spatial_attention_bwd_dkdv_bf16(
     }
     __syncthreads();  // the next tile refills this buffer
   }
-  const long long o = (b * (long long)S * H + h) * D;
-  store_c<D>(dk + o, (long long)H * D, dka, k0 + warp * 16, S);
-  store_c<D>(dv + o, (long long)H * D, dva, k0 + warp * 16, S);
+  const long long o = (b * (long long)S * H + h) * Dn;
+  store_c<D, RAGGED>(dk + o, (long long)H * Dn, dka, k0 + warp * 16, S, Dn);
+  store_c<D, RAGGED>(dv + o, (long long)H * Dn, dva, k0 + warp * 16, S, Dn);
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool RAGGED>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* out,
                         const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                        void* delta, int B, int S, int H, int causal, const long long* st,
-                        cudaStream_t stream) {
+                        void* delta, int B, int S, int H, int D_true, int causal,
+                        const long long* st, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]}, sd{st[12], st[13], st[14]};
   const dim3 grid((S + 16 * WARPS - 1) / (16 * WARPS), H, B);
-  spatial_attention_bwd_dq_bf16<D, WARPS><<<grid, 32 * WARPS, 0, stream>>>(
+  spatial_attention_bwd_dq_bf16<D, WARPS, RAGGED><<<grid, 32 * WARPS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const float*>(lse),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<float*>(delta),
-      S, H, causal, sq, sk, sv, so, sd);
+      S, H, D_true, causal, sq, sk, sv, so, sd);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  spatial_attention_bwd_dkdv_bf16<D, WARPS><<<grid, 32 * WARPS, 0, stream>>>(
+  spatial_attention_bwd_dkdv_bf16<D, WARPS, RAGGED><<<grid, 32 * WARPS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(lse), static_cast<const bf16*>(dout),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      S, H, causal, sq, sk, sv, sd);
+      S, H, D_true, causal, sq, sk, sv, sd);
   return cudaGetLastError();
 }
 
 // 4 warps a block, or 2 where 4-warp blocks would give fewer than two a SM
-template <int D>
+template <int D, bool RAGGED>
 cudaError_t launch_bf16_any(const void* q, const void* k, const void* v, const void* out,
                             const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                            void* delta, int B, int S, int H, int causal, const long long* st,
-                            cudaStream_t stream) {
+                            void* delta, int B, int S, int H, int D_true, int causal,
+                            const long long* st, cudaStream_t stream) {
   if (hma_mma::few_blocks((long long)((S + 63) / 64) * H * B))
-    return launch_bf16<D, 2>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal,
-                             st, stream);
-  return launch_bf16<D, 4>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal, st,
-                           stream);
+    return launch_bf16<D, 2, RAGGED>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H,
+                                     D_true, causal, st, stream);
+  return launch_bf16<D, 4, RAGGED>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H,
+                                   D_true, causal, st, stream);
 }
 
 }  // namespace
@@ -506,15 +555,13 @@ extern "C" int hma_fused_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || delta == nullptr)
     return (int)cudaErrorInvalidValue;
-#define HMA_LAUNCH(T, DD) \
-  launch<T, DD>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal, st, s)
-  if (dtype == 0 && D == 32) return (int)HMA_LAUNCH(float, 32);
-  if (dtype == 0 && D == 64) return (int)HMA_LAUNCH(float, 64);
-#undef HMA_LAUNCH
-#define HMA_LAUNCH_BF16(DD) \
-  launch_bf16_any<DD>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, causal, st, s)
-  if (dtype == 1 && D == 32) return (int)HMA_LAUNCH_BF16(32);
-  if (dtype == 1 && D == 64) return (int)HMA_LAUNCH_BF16(64);
-#undef HMA_LAUNCH_BF16
-  return (int)cudaErrorInvalidValue;
+  return hma_mma::dispatch(dtype, D, [&](auto body) {
+    using Bd = decltype(body);
+    if constexpr (std::is_same_v<typename Bd::T, float>)
+      return (int)launch<float, Bd::DP, Bd::RAGGED>(q, k, v, out, lse, dout, dq, dk, dv,
+                                                    delta, B, S, H, D, causal, st, s);
+    else
+      return (int)launch_bf16_any<Bd::DP, Bd::RAGGED>(q, k, v, out, lse, dout, dq, dk, dv,
+                                                      delta, B, S, H, D, causal, st, s);
+  });
 }

@@ -49,11 +49,25 @@
 // accumulator in registers; keys and values pass through shared memory in
 // 64-key fp32 tiles read as warp-wide broadcasts; the same two sweeps.
 //
+// Head dims: the bodies are templates on the width D they run at, 16, 32 or
+// 64 (at D 16 q k^T is one m16n8k16 k-step and p v two n8 tiles; the tile
+// pitch of 24 elements keeps ldmatrix conflict-free). A head dim equal to it
+// takes the aligned path above; any other head dim up to 64 (D_true, 61 on
+// the magvit d512 card) takes the ragged path at the next width, at any
+// 2-byte alignment: the 16-byte-aligned chunks covering each row copied by
+// cp.async (hma_mma::load_rows_ragged; the reads stay inside the row's
+// 16-byte-aligned extent), then the row shifted into place with columns
+// D_true..D zero-filled (hma_mma::align_rows), so q k^T and p v equal the
+// products over D_true, and only the D_true real columns stored (the fp32
+// body guards its element loads and stores instead).
+//
 // C entry point: hma_fused_attention_fwd, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -72,13 +86,15 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Stage keys [j0, j0 + KT) of one (b, h) into dst as fp32; rows past n_keys are 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float (*dst)[D], const T* __restrict__ src,
-                                          long long row_stride, int j0, int n_keys) {
-  for (int i = threadIdx.x; i < KT * D; i += ROWS) {
-    const int j = i / D, d = i % D;
-    dst[j][d] = (j0 + j < n_keys) ? to_f(src[(long long)(j0 + j) * row_stride + d]) : 0.f;
+// Stage keys [j0, j0 + KT) of one (b, h) into dst as fp32 rows of DP; rows
+// past n_keys and (ragged) columns past D are 0.
+template <typename T, int DP, bool RAGGED>
+__device__ __forceinline__ void load_tile(float (*dst)[DP], const T* __restrict__ src,
+                                          long long row_stride, int j0, int n_keys, int D) {
+  for (int i = threadIdx.x; i < KT * DP; i += ROWS) {
+    const int j = i / DP, d = i % DP;
+    dst[j][d] = (j0 + j < n_keys && (!RAGGED || d < D))
+                    ? to_f(src[(long long)(j0 + j) * row_stride + d]) : 0.f;
   }
 }
 
@@ -97,11 +113,11 @@ __device__ __forceinline__ float dot_row(const float (&qr)[D], const float* __re
   return s;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 __global__ void __launch_bounds__(ROWS)
 spatial_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int S, int H, int causal,
+    T* __restrict__ out, float* __restrict__ lse, int S, int H, int D_true, int causal,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh) {
@@ -111,13 +127,15 @@ spatial_attention_fwd_kernel(
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * ROWS + threadIdx.x;
   const bool live = row < S;
+  const int Dn = RAGGED ? D_true : D;  // the row's real elements
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
 
   float qr[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = live ? to_f(qb[(long long)row * q_ss + d]) : 0.f;
+  for (int d = 0; d < D; ++d)
+    qr[d] = live && d < Dn ? to_f(qb[(long long)row * q_ss + d]) : 0.f;
 
   // keys any row of this block attends to (uniform across the block)
   const int n_keys = causal ? min(S, (int)(blockIdx.x + 1) * ROWS) : S;
@@ -127,7 +145,7 @@ spatial_attention_fwd_kernel(
   float m = -INFINITY, l = 0.f;
   for (int j0 = 0; j0 < n_keys; j0 += KT) {
     __syncthreads();
-    load_tile<T, D>(ks, kb, k_ss, j0, n_keys);
+    load_tile<T, D, RAGGED>(ks, kb, k_ss, j0, n_keys, Dn);
     __syncthreads();
     const int jn = min(KT, min(n_keys, last_key + 1) - j0);
     if (live) {
@@ -149,8 +167,8 @@ spatial_attention_fwd_kernel(
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   for (int j0 = 0; j0 < n_keys; j0 += KT) {
     __syncthreads();
-    load_tile<T, D>(ks, kb, k_ss, j0, n_keys);
-    load_tile<T, D>(vs, vb, v_ss, j0, n_keys);
+    load_tile<T, D, RAGGED>(ks, kb, k_ss, j0, n_keys, Dn);
+    load_tile<T, D, RAGGED>(vs, vb, v_ss, j0, n_keys, Dn);
     __syncthreads();
     const int jn = min(KT, min(n_keys, last_key + 1) - j0);
     if (live) {
@@ -170,21 +188,22 @@ spatial_attention_fwd_kernel(
   }
 
   if (live) {
-    T* orow = out + (((long long)b * S + row) * H + h) * D;
+    T* orow = out + (((long long)b * S + row) * H + h) * Dn;
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = from_f<T>(acc[d]);
+    for (int d = 0; d < D; ++d)
+      if (d < Dn) orow[d] = from_f<T>(acc[d]);
     lse[((long long)b * H + h) * S + row] = m + logf(l);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
-                   int B, int S, int H, int causal, const long long* st,
+                   int B, int S, int H, int D_true, int causal, const long long* st,
                    cudaStream_t stream) {
   const dim3 grid((S + ROWS - 1) / ROWS, H, B);
-  spatial_attention_fwd_kernel<T, D><<<grid, ROWS, 0, stream>>>(
+  spatial_attention_fwd_kernel<T, D, RAGGED><<<grid, ROWS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), S, H, causal,
+      static_cast<T*>(out), static_cast<float*>(lse), S, H, D_true, causal,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return cudaGetLastError();
 }
@@ -203,11 +222,11 @@ constexpr int RESIDENT_BYTES = 64 * 1024;
 template <int D>
 __host__ __device__ constexpr int tile_bytes() { return KT * (D + 8) * 2; }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool RAGGED>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_attention_fwd_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, float* __restrict__ lse, int S, int H, int causal,
+    bf16* __restrict__ out, float* __restrict__ lse, int S, int H, int D_true, int causal,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh) {
@@ -219,6 +238,7 @@ spatial_attention_fwd_bf16(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
+  const int Dn = RAGGED ? D_true : D;  // the row's real elements
 
   // keys any row of this block attends to, and each of the lane's two rows
   const int n_keys = causal ? min(S, q0 + ROWS) : S;
@@ -237,11 +257,13 @@ spatial_attention_fwd_bf16(
     const int j = step < n_tiles ? step : step - n_tiles;
     const int slot = resident ? j : step & 1;
     if (step < n_tiles || !resident)
-      load_rows<KT, D, THREADS>(ks + slot * KT, kb, k_ss, j * KT, n_keys);
-    if (step >= n_tiles) load_rows<KT, D, THREADS>(vs + slot * KT, vb, v_ss, j * KT, n_keys);
+      stage_rows<KT, D, THREADS, RAGGED>(ks + slot * KT, kb, k_ss, j * KT, n_keys, Dn);
+    if (step >= n_tiles)
+      stage_rows<KT, D, THREADS, RAGGED>(vs + slot * KT, vb, v_ss, j * KT, n_keys, Dn);
     cp_async_commit();
   };
-  load_rows<ROWS, D, THREADS>(qs, q + b * q_sb + h * q_sh, q_ss, q0, S);
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  stage_rows<ROWS, D, THREADS, RAGGED>(qs, qb, q_ss, q0, S, Dn);
   const int ahead = resident ? n_steps : 1;  // steps whose copies are in flight
   for (int step = 0; step < ahead; ++step) issue(step);
 
@@ -260,9 +282,17 @@ spatial_attention_fwd_bf16(
       cp_async_wait<1>();
     }
     __syncthreads();
-    if (step == 0) load_a_frags<D>(qa, qs, warp * 16);
     const int j = step < n_tiles ? step : step - n_tiles, j0 = j * KT;
     const int slot = resident ? j : step & 1;
+    if constexpr (RAGGED) {  // move this step's freshly copied rows into place
+      if (step == 0) realign<ROWS, D, THREADS, RAGGED>(qs, qb, q_ss, q0, S, Dn);
+      if (step < n_tiles || !resident)
+        realign<KT, D, THREADS, RAGGED>(ks + slot * KT, kb, k_ss, j0, n_keys, Dn);
+      if (step >= n_tiles)
+        realign<KT, D, THREADS, RAGGED>(vs + slot * KT, vb, v_ss, j0, n_keys, Dn);
+      __syncthreads();
+    }
+    if (step == 0) load_a_frags<D>(qa, qs, warp * 16);
 
     float s[8][4];
 #pragma unroll
@@ -327,12 +357,13 @@ spatial_attention_fwd_bf16(
     }
     if (!resident) __syncthreads();  // the next step refills this buffer
   }
-  store_c<D>(out + ((long long)b * S * H + h) * D, (long long)H * D, o, q0 + warp * 16, S);
+  store_c<D, RAGGED>(out + ((long long)b * S * H + h) * Dn, (long long)H * Dn, o,
+                     q0 + warp * 16, S, Dn);
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool RAGGED>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
-                        int B, int S, int H, int causal, const long long* st,
+                        int B, int S, int H, int D_true, int causal, const long long* st,
                         cudaStream_t stream) {
   const int n_buf = (S + KT - 1) / KT;
   const int kv_bytes = 2 * n_buf * tile_bytes<D>() <= RESIDENT_BYTES
@@ -343,28 +374,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   int dev = 0;
   cudaGetDevice(&dev);
   if (!(opted_in >> dev & 1u)) {
-    const cudaError_t err = cudaFuncSetAttribute(spatial_attention_fwd_bf16<D, WARPS>,
+    const cudaError_t err = cudaFuncSetAttribute(spatial_attention_fwd_bf16<D, WARPS, RAGGED>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  16 * WARPS * (D + 8) * 2 + RESIDENT_BYTES);
     if (err != cudaSuccess) return err;
     opted_in |= 1u << dev;
   }
   const dim3 grid((S + 16 * WARPS - 1) / (16 * WARPS), H, B);
-  spatial_attention_fwd_bf16<D, WARPS><<<grid, 32 * WARPS, bytes, stream>>>(
+  spatial_attention_fwd_bf16<D, WARPS, RAGGED><<<grid, 32 * WARPS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), S, H, causal,
+      static_cast<bf16*>(out), static_cast<float*>(lse), S, H, D_true, causal,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return cudaGetLastError();
 }
 
 // 4 warps a block, or 2 where 4-warp blocks would give fewer than two a SM
-template <int D>
+template <int D, bool RAGGED>
 cudaError_t launch_bf16_any(const void* q, const void* k, const void* v, void* out, void* lse,
-                            int B, int S, int H, int causal, const long long* st,
+                            int B, int S, int H, int D_true, int causal, const long long* st,
                             cudaStream_t stream) {
   if (hma_mma::few_blocks((long long)((S + 63) / 64) * H * B))
-    return launch_bf16<D, 2>(q, k, v, out, lse, B, S, H, causal, st, stream);
-  return launch_bf16<D, 4>(q, k, v, out, lse, B, S, H, causal, st, stream);
+    return launch_bf16<D, 2, RAGGED>(q, k, v, out, lse, B, S, H, D_true, causal, st, stream);
+  return launch_bf16<D, 4, RAGGED>(q, k, v, out, lse, B, S, H, D_true, causal, st, stream);
 }
 
 }  // namespace
@@ -379,11 +410,13 @@ extern "C" int hma_fused_attention_fwd(
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32) return (int)launch<float, 32>(q, k, v, out, lse, B, S, H, causal, st, s);
-  if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, out, lse, B, S, H, causal, st, s);
-  if (dtype == 1 && D == 32)
-    return (int)launch_bf16_any<32>(q, k, v, out, lse, B, S, H, causal, st, s);
-  if (dtype == 1 && D == 64)
-    return (int)launch_bf16_any<64>(q, k, v, out, lse, B, S, H, causal, st, s);
-  return (int)cudaErrorInvalidValue;
+  return hma_mma::dispatch(dtype, D, [&](auto body) {
+    using Bd = decltype(body);
+    if constexpr (std::is_same_v<typename Bd::T, float>)
+      return (int)launch<float, Bd::DP, Bd::RAGGED>(q, k, v, out, lse, B, S, H, D, causal, st,
+                                                    s);
+    else
+      return (int)launch_bf16_any<Bd::DP, Bd::RAGGED>(q, k, v, out, lse, B, S, H, D, causal,
+                                                      st, s);
+  });
 }

@@ -11,10 +11,19 @@
 // the A fragment of their 16 columns: {pack(c0,c1) of tile 0, pack(c2,c3) of
 // tile 0, pack(c0,c1) of tile 1, pack(c2,c3) of tile 1}.
 //
-// Tiles live in shared memory as rows of D bf16 with a pitch of D + 8
-// elements (80 or 144 bytes): the eight 16-byte rows an ldmatrix phase reads
-// then fall in eight different bank groups, and every row start stays
-// 16-byte aligned for cp.async.
+// Tiles live in shared memory as rows of DP bf16 with a pitch of DP + 8
+// elements (48, 80 or 144 bytes at DP 16, 32, 64): the eight 16-byte rows an
+// ldmatrix phase reads then fall in eight different bank groups, and every
+// row start stays 16-byte aligned for cp.async.
+//
+// Head dims: DP is 16, 32 or 64, the width the products run at. A head dim D
+// of exactly DP takes the aligned path (16-byte cp.async copies, 2-element
+// stores). Any other D <= 64 takes the ragged path at the next DP: its rows
+// (D elements, 2-byte aligned inside a (..., 3, H, D) projection) are copied
+// as the 16-byte-aligned chunks that cover them, then shifted into place in
+// shared memory with columns D..DP zero-filled, so every product over the DP
+// columns equals the product over D (the extra terms are 0 x 0), the padded
+// output columns come out 0, and only the D real columns are stored.
 
 #pragma once
 
@@ -124,6 +133,85 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16 (*dst)[D + 8],
   }
 }
 
+// The ragged path's load_rows: rows of D < DP elements at any 2-byte
+// alignment. The row starting at byte address a lies in the 16-byte chunks
+// from a - (a mod 16) on; those that hold its elements, at most DP / 8 + 1 of
+// them (a mod 16 + 2 D < 2 DP + 16 bytes, the slot's pitch), are copied by
+// 16-byte cp.async into its slot as they stand. `align_rows` then moves each
+// row to the slot's start. Rows >= n are zeros. So up to 15 bytes before and
+// after the row are read, never outside its 16-byte-aligned extent (no chunk
+// past the one with the row's last element).
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void load_rows_ragged(__nv_bfloat16 (*dst)[DP + 8],
+                                                 const __nv_bfloat16* __restrict__ src,
+                                                 long long row_stride, int r0, int n, int D) {
+  constexpr int CHUNKS = DP / 8 + 1;  // 16-byte pieces a slot
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool live = r0 + r < n;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src + (live ? (long long)(r0 + r) * row_stride : 0));
+    const int lead = (int)(a & 15);
+    const bool valid = live && 16 * c < lead + 2 * D;
+    cp_async16(&dst[r][c * 8], reinterpret_cast<const void*>((a - lead) + (valid ? 16 * c : 0)),
+               valid);
+  }
+}
+
+// After the ragged path's copies have landed (and a barrier): shift each row
+// of the tile left by its lead (a mod 16 bytes, as load_rows_ragged found it)
+// and zero columns D..DP, one warp a row, U rows a warp at a time (all their
+// reads before their writes). A barrier must follow before the tile is read.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void align_rows(__nv_bfloat16 (*tile)[DP + 8],
+                                           const __nv_bfloat16* __restrict__ src,
+                                           long long row_stride, int r0, int n, int D) {
+  constexpr int PER = (DP + 31) / 32, WARPS = THREADS / 32;
+  constexpr int U = ROWS / WARPS < 4 ? ROWS / WARPS : 4;
+  static_assert(ROWS % (WARPS * U) == 0, "whole batches of rows a warp");
+  const int lane = threadIdx.x & 31;
+  for (int r1 = (threadIdx.x >> 5) * U; r1 < ROWS; r1 += WARPS * U) {
+    unsigned short x[U][PER];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r1 + u;
+      const int shift = r0 + r < n ? (int)(reinterpret_cast<uintptr_t>(
+                                               src + (long long)(r0 + r) * row_stride) & 15) / 2
+                                   : 0;
+      const unsigned short* row = reinterpret_cast<const unsigned short*>(tile[r]);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int j = lane + 32 * k;
+        x[u][k] = j < D ? row[j + shift] : 0;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (lane + 32 * k < DP) reinterpret_cast<unsigned short*>(tile[r1 + u])[lane + 32 * k] = x[u][k];
+  }
+}
+
+// Stage rows as the path of (DP, RAGGED) does: 16-byte cp.async copies of
+// whole rows, or (ragged) of the chunks covering each row, which `realign`
+// then moves into place.
+template <int ROWS, int DP, int THREADS, bool RAGGED>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16 (*dst)[DP + 8],
+                                           const __nv_bfloat16* __restrict__ src,
+                                           long long row_stride, int r0, int n, int D) {
+  if constexpr (RAGGED) load_rows_ragged<ROWS, DP, THREADS>(dst, src, row_stride, r0, n, D);
+  else load_rows<ROWS, DP, THREADS>(dst, src, row_stride, r0, n);
+}
+
+// The ragged path's second step of stage_rows (nothing on the aligned path).
+template <int ROWS, int DP, int THREADS, bool RAGGED>
+__device__ __forceinline__ void realign(__nv_bfloat16 (*tile)[DP + 8],
+                                        const __nv_bfloat16* __restrict__ src,
+                                        long long row_stride, int r0, int n, int D) {
+  if constexpr (RAGGED) align_rows<ROWS, DP, THREADS>(tile, src, row_stride, r0, n, D);
+}
+
 // Stage floats [r0, r0 + N) of an fp32 vector into shared memory; zeros past n.
 template <int N, int THREADS>
 __device__ __forceinline__ void load_floats(float* dst, const float* __restrict__ src,
@@ -186,11 +274,13 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// Write a warp's 16 x D fp32 C fragments as bf16 rows row0 + (g, g + 8) of
-// a (row-strided) output; rows >= n are not written.
-template <int D>
+// Write a warp's 16 x DP fp32 C fragments as bf16 rows row0 + (g, g + 8) of
+// a (row-strided) output; rows >= n are not written. Aligned path: two
+// elements a store. Ragged: one element a store, columns >= D not written.
+template <int DP, bool RAGGED = false>
 __device__ __forceinline__ void store_c(__nv_bfloat16* __restrict__ dst, long long row_stride,
-                                        const float (&c)[D / 8][4], int row0, int n) {
+                                        const float (&c)[DP / 8][4], int row0, int n,
+                                        int D = DP) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -198,10 +288,59 @@ __device__ __forceinline__ void store_c(__nv_bfloat16* __restrict__ dst, long lo
     if (row >= n) continue;
     __nv_bfloat16* o = dst + (long long)row * row_stride + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(o + nt * 8) =
-          __floats2bfloat162_rn(c[nt][2 * half], c[nt][2 * half + 1]);
+    for (int nt = 0; nt < DP / 8; ++nt) {
+      if constexpr (RAGGED) {
+        const int col = nt * 8 + 2 * t;
+        if (col < D) o[nt * 8] = __float2bfloat16_rn(c[nt][2 * half]);
+        if (col + 1 < D) o[nt * 8 + 1] = __float2bfloat16_rn(c[nt][2 * half + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(o + nt * 8) =
+            __floats2bfloat162_rn(c[nt][2 * half], c[nt][2 * half + 1]);
+      }
+    }
   }
+}
+
+// Two bf16 of a global row at columns col and col + 1 as a B-fragment
+// register (col in the low half); ragged: each element past D reads as 0.
+template <bool RAGGED>
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* __restrict__ row, int col,
+                                              int D) {
+  if constexpr (!RAGGED) return *reinterpret_cast<const uint32_t*>(row + col);
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(row);
+  const uint32_t lo = col < D ? s[col] : 0u, hi = col + 1 < D ? s[col + 1] : 0u;
+  return lo | hi << 16;
+}
+
+// The padded width a head dim runs at: 16, 32 or 64 (0 past 64).
+__host__ __device__ constexpr int padded_dim(int D) {
+  return D <= 0 ? 0 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 0;
+}
+
+// The body an attention entry launches: compute type T, padded width DP,
+// and whether it takes the ragged path.
+template <typename T_, int DP_, bool RAGGED_> struct Body {
+  using T = T_;
+  static constexpr int DP = DP_;
+  static constexpr bool RAGGED = RAGGED_;
+};
+
+// Host: return fn(Body<T, DP, RAGGED>{}) for dtype 0 (float32) or 1
+// (bfloat16) and head dim D: DP = padded_dim(D), the aligned path where
+// D == DP, the ragged one otherwise; cudaErrorInvalidValue for any other
+// dtype or a D outside 1..64. fn returns an int.
+template <typename F> inline int dispatch(int dtype, int D, F&& fn) {
+  const int DP = padded_dim(D);
+  const bool ragged = D != DP;
+#define HMA_BODY(TT, DD)                                              \
+  if (DP == DD) return ragged ? fn(Body<TT, DD, true>{}) : fn(Body<TT, DD, false>{});
+  if (dtype == 0) {
+    HMA_BODY(float, 16) HMA_BODY(float, 32) HMA_BODY(float, 64)
+  } else if (dtype == 1) {
+    HMA_BODY(__nv_bfloat16, 16) HMA_BODY(__nv_bfloat16, 32) HMA_BODY(__nv_bfloat16, 64)
+  }
+#undef HMA_BODY
+  return (int)cudaErrorInvalidValue;
 }
 
 // Host: whether n blocks would give the current device fewer than two a SM

@@ -19,7 +19,7 @@
 //   - A block takes a tile of R (site, head) rows, R = 32 / F, with all their
 //     frames: lane l of warp w owns row r = l % R at frame t = w F + l / R.
 //     R = 32 where the tile fits the shared-memory budget; F = 2, 4 or 8
-//     frames a warp where it does not (D 64, the backward, fp32). Lanes of
+//     frames a warp where it does not (DP 64, the backward, fp32). Lanes of
 //     one warp share their frame up to F, so their causal loops (t + 1 keys)
 //     agree up to F - 1 steps.
 //   - Staging: the tile's rows of q, k, v (and out, dout) are copied into
@@ -33,6 +33,17 @@
 //     room for two or more resident blocks a SM, so one block's copies
 //     overlap another's arithmetic (on an H100 this beat blocks that walk
 //     several tiles with the next tile's copies in flight).
+//   - Head dims: the bodies are instantiated at DP = 16, 32 and 64 (rows of
+//     DP elements, a thread's row in DP registers). D == DP is the aligned
+//     path above. Any other D up to 64 runs at the next DP on the ragged
+//     path: its rows (4D or 2D bytes, 2-byte aligned inside a (..., 3, H, D)
+//     projection, which no cp.async can read as rows) are copied as the
+//     16-byte-aligned chunks that cover them, by the same cp.async, into
+//     their slots (a slot's extra 16 bytes of pitch hold the lead), then
+//     shifted to the slot's start in shared memory with columns D..DP
+//     zero-filled, one warp a row; every dot product and axpy over DP then
+//     equals the one over D, and only the D real elements of each output row
+//     are stored, one by one.
 //   - Outputs go back through shared memory (out over q's row, dq over
 //     out's, dk and dv over k's and v's, each row overwritten only once its
 //     last reader is done) as 16-byte stores of whole rows.
@@ -76,11 +87,11 @@ constexpr int MAX_SMEM = 227 * 1024;  // a block's dynamic shared memory on sm_9
 constexpr long long FWD_TILE_BYTES = 113 * 1024;
 constexpr long long BWD_TILE_BYTES = 75 * 1024;
 
-// Threads a block at most: MAX_T warps (512) at D 32. At D 64 the backward
-// keeps q_t, dout_t and dq_t as D floats a thread, more than the 128
-// registers that 512 threads a block leave, so 256 (the forward, which needs
-// fewer, takes the same bound).
-template <int D> constexpr int max_threads() { return D == 64 ? 256 : 512; }
+// Threads a block at most: MAX_T warps (512) at DP 16 and 32. At DP 64 the
+// backward keeps q_t, dout_t and dq_t as 64 floats a thread, more than the
+// 128 registers that 512 threads a block leave, so 256 (the forward, which
+// needs fewer, takes the same bound).
+template <int DP> constexpr int max_threads() { return DP == 64 ? 256 : 512; }
 
 // Where the D-long row of (site n = b * S + s, frame t, head h) starts, in
 // elements: b * b_ + t * t_ + s * s_ + h * h_. (N, T, H, D) tensors use S = 1,
@@ -92,13 +103,20 @@ struct Map {
   }
 };
 
-// A row of D elements of type T in shared memory, read and written 16 bytes
+// A row of DP elements of type T in shared memory, read and written 16 bytes
 // at a time: EPC elements a piece, PITCH elements from one row to the next.
-template <typename T, int D> struct Row {
+// A head dim D below DP (the ragged path) fills columns D..DP with zeros.
+template <typename T, int DP> struct Row {
   static constexpr int EPC = 16 / (int)sizeof(T);
-  static constexpr int PIECES = D / EPC;
-  static constexpr int PITCH = D + EPC;
+  static constexpr int PIECES = DP / EPC;
+  static constexpr int PITCH = DP + EPC;
 };
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
 
 // 16 bytes of shared memory as floats.
 __device__ __forceinline__ void load16(const float* p, float* x) {
@@ -174,12 +192,8 @@ __device__ __forceinline__ void axpy(float w, const T* row, float (&acc)[D]) {
 struct Tile {
   int sh0, NH, S, H, T_len, R, lr;  // lr = log2(R); the launcher keeps N H < 2^31
 
-  // Piece i of the tile, whose rows have `pieces` pieces: its shared row,
-  // the element offset in it, and the row's (b, t, s, h); false past NH.
-  __device__ __forceinline__ bool piece(int i, int pieces, int epc, int& row, int& e,
-                                        int& b, int& t, int& s, int& h) const {
-    row = i / pieces;
-    e = (i - row * pieces) * epc;
+  // Shared row `row` of the tile: its (b, t, s, h); false past NH.
+  __device__ __forceinline__ bool at(int row, int& b, int& t, int& s, int& h) const {
     t = row >> lr;
     const int sh = sh0 + (row & (R - 1));
     if (sh >= NH) return false;
@@ -189,24 +203,106 @@ struct Tile {
     s = n - b * S;
     return true;
   }
+
+  // Piece i of the tile, whose rows have `pieces` pieces: its shared row,
+  // the element offset in it, and the row's (b, t, s, h); false past NH.
+  __device__ __forceinline__ bool piece(int i, int pieces, int epc, int& row, int& e,
+                                        int& b, int& t, int& s, int& h) const {
+    row = i / pieces;
+    e = (i - row * pieces) * epc;
+    return at(row, b, t, s, h);
+  }
 };
 
-// Copy COUNT tensors' rows of the tile into shared memory, 16 bytes a
-// cp.async, neighbouring threads on neighbouring pieces: src[c] with map[c]
-// into dst + c * rows * PITCH.
-template <typename T, int D, int COUNT>
+// Copy COUNT tensors' rows of the tile into shared memory, src[c] with
+// map[c] into dst + c * rows * PITCH, 16 bytes a cp.async, neighbouring
+// threads on neighbouring pieces. Aligned path: the rows themselves. Ragged
+// (D < DP, rows at any alignment): the 16-byte-aligned chunks that cover
+// each row, from a - (a mod 16) for a row at byte address a, PIECES + 1 of
+// them at most (a mod 16 + D sizeof(T) < PITCH sizeof(T)), as they stand;
+// `align_tile` then moves each row to its slot's start. So up to 15 bytes
+// before and after a row are read, never outside its 16-byte-aligned extent
+// (no chunk past the one with the row's last element).
+template <typename T, int DP, int COUNT, bool RAGGED>
 __device__ __forceinline__ void stage_tile(const Tile& tl, T* dst,
                                            const T* const (&src)[COUNT],
-                                           const Map (&map)[COUNT]) {
-  using RW = Row<T, D>;
+                                           const Map (&map)[COUNT], int D) {
+  using RW = Row<T, DP>;
+  constexpr int PIECES = RAGGED ? RW::PIECES + 1 : RW::PIECES;
   const int rows = tl.T_len * tl.R;
-  for (int i = threadIdx.x; i < rows * RW::PIECES; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * PIECES; i += blockDim.x) {
     int row, e, t, h, b = 0, s = 0;
-    const bool valid = tl.piece(i, RW::PIECES, RW::EPC, row, e, b, t, s, h);
+    const bool valid = tl.piece(i, PIECES, RW::EPC, row, e, b, t, s, h);
 #pragma unroll
-    for (int c = 0; c < COUNT; ++c)
-      hma_mma::cp_async16(dst + (c * rows + row) * RW::PITCH + e,
-                          src[c] + (valid ? map[c].at(b, t, s, h) + e : 0), valid);
+    for (int c = 0; c < COUNT; ++c) {
+      T* slot = dst + (c * rows + row) * RW::PITCH + e;
+      if constexpr (RAGGED) {
+        const uintptr_t a = reinterpret_cast<uintptr_t>(src[c] + (valid ? map[c].at(b, t, s, h) : 0));
+        const int lead = (int)(a & 15);
+        const bool live = valid && e * (int)sizeof(T) < lead + D * (int)sizeof(T);
+        hma_mma::cp_async16(slot, reinterpret_cast<const void*>(
+                                      (a - lead) + (live ? e * sizeof(T) : 0)), live);
+      } else {
+        hma_mma::cp_async16(slot, src[c] + (valid ? map[c].at(b, t, s, h) + e : 0), valid);
+      }
+    }
+  }
+}
+
+// The ragged path, once stage_tile's copies have landed (and a barrier):
+// shift each row of the COUNT tensors' tiles left by its lead (a mod 16
+// bytes, as stage_tile found it) and zero columns D..DP, one warp a row, the
+// COUNT tensors' reads before their writes. A barrier must follow before the
+// tiles are read. Nothing on the aligned path.
+template <typename T, int DP, int COUNT, bool RAGGED>
+__device__ __forceinline__ void align_tile(const Tile& tl, T* dst, const T* const (&src)[COUNT],
+                                           const Map (&map)[COUNT], int D) {
+  if constexpr (RAGGED) {
+    constexpr int PER = (DP + 31) / 32;
+    const int lane = threadIdx.x & 31, rows = tl.T_len * tl.R;
+    for (int row = threadIdx.x >> 5; row < rows; row += blockDim.x >> 5) {
+      int t, h, b = 0, s = 0;
+      const bool valid = tl.at(row, b, t, s, h);
+      T x[COUNT][PER];
+#pragma unroll
+      for (int c = 0; c < COUNT; ++c) {
+        const int shift =
+            valid ? (int)(reinterpret_cast<uintptr_t>(src[c] + map[c].at(b, t, s, h)) & 15) /
+                        (int)sizeof(T)
+                  : 0;
+        const T* r = dst + (c * rows + row) * Row<T, DP>::PITCH;
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int j = lane + 32 * k;
+          x[c][k] = j < D ? r[j + shift] : zero<T>();
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < COUNT; ++c)
+#pragma unroll
+        for (int k = 0; k < PER; ++k)
+          if (lane + 32 * k < DP) dst[(c * rows + row) * Row<T, DP>::PITCH + lane + 32 * k] = x[c][k];
+    }
+  }
+}
+
+// The ragged path's output store: shared row `row` (pitch PITCH) of smem[c]
+// goes to the global row of (b, t, s, h) at element offset ((b * T + t) * S
+// + s) * g_row + h * D, its D real elements one by one, one warp a row. (The
+// aligned path stores whole rows, 16 bytes a store, in the kernels.)
+template <typename T, int DP, int COUNT>
+__device__ __forceinline__ void store_tile_ragged(const Tile& tl, T* const (&dst)[COUNT],
+                                                  const T* const (&smem)[COUNT],
+                                                  long long g_row, int D) {
+  const int lane = threadIdx.x & 31, rows = tl.T_len * tl.R;
+  for (int row = threadIdx.x >> 5; row < rows; row += blockDim.x >> 5) {
+    int t, h, b = 0, s = 0;
+    if (!tl.at(row, b, t, s, h)) continue;
+    const long long g = (((long long)b * tl.T_len + t) * tl.S + s) * g_row + h * D;
+    for (int j = lane; j < D; j += 32)
+#pragma unroll
+      for (int c = 0; c < COUNT; ++c) dst[c][g + j] = smem[c][row * Row<T, DP>::PITCH + j];
   }
 }
 
@@ -216,12 +312,13 @@ __device__ __forceinline__ void stage_tile(const Tile& tl, T* dst,
 // rows: the thread of (r, t) keeps its row's at (t (t + 1) / 2 + j) R + r).
 // q and k arrive as one group of copies, v as a second, which lands while
 // the scores are computed.
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 __global__ void __launch_bounds__(max_threads<D>())
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ out, float* __restrict__ lse, long long N, int S, int T_len,
-           int H, int R, Map mq, Map mk, Map mv) {
+           int H, int R, int D_true, Map mq, Map mk, Map mv) {
   using RW = Row<T, D>;
+  const int Dn = RAGGED ? D_true : D;  // a row's real elements
   constexpr int P = RW::PITCH;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = T_len * R;
@@ -230,18 +327,20 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   T* Vs = Ks + rows * P;
   float* Ss = reinterpret_cast<float*>(Vs + rows * P);
   const Tile tl{(int)blockIdx.x * R, (int)(N * H), S, H, T_len, R, __ffs(R) - 1};
-  {
-    const T* const qk[2] = {q, k};
-    const Map mqk[2] = {mq, mk};
-    stage_tile<T, D, 2>(tl, Qs, qk, mqk);
-    hma_mma::cp_async_commit();
-    const T* const vv[1] = {v};
-    const Map mvv[1] = {mv};
-    stage_tile<T, D, 1>(tl, Vs, vv, mvv);
-    hma_mma::cp_async_commit();
-  }
+  const T* const qk[2] = {q, k};
+  const Map mqk[2] = {mq, mk};
+  const T* const vv[1] = {v};
+  const Map mvv[1] = {mv};
+  stage_tile<T, D, 2, RAGGED>(tl, Qs, qk, mqk, Dn);
+  hma_mma::cp_async_commit();
+  stage_tile<T, D, 1, RAGGED>(tl, Vs, vv, mvv, Dn);
+  hma_mma::cp_async_commit();
   hma_mma::cp_async_wait<1>();
   __syncthreads();
+  if constexpr (RAGGED) {
+    align_tile<T, D, 2, RAGGED>(tl, Qs, qk, mqk, Dn);
+    __syncthreads();
+  }
 
   const int lane = threadIdx.x & 31;
   const int r = lane & (R - 1);
@@ -270,6 +369,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
   hma_mma::cp_async_wait<0>();
   __syncthreads();
+  if constexpr (RAGGED) {
+    align_tile<T, D, 1, RAGGED>(tl, Vs, vv, mvv, Dn);
+    __syncthreads();
+  }
   if (mine) {
     float acc[D];
 #pragma unroll
@@ -281,11 +384,17 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < rows * RW::PIECES; i += blockDim.x) {
-    int row, e, t2, h, b = 0, s = 0;
-    if (!tl.piece(i, RW::PIECES, RW::EPC, row, e, b, t2, s, h)) continue;
-    *reinterpret_cast<uint4*>(out + ((((long long)b * T_len + t2) * S + s) * H + h) * D + e) =
-        *reinterpret_cast<const uint4*>(Qs + row * P + e);
+  if constexpr (RAGGED) {
+    T* const dst[1] = {out};
+    const T* const src[1] = {Qs};
+    store_tile_ragged<T, D, 1>(tl, dst, src, (long long)H * Dn, Dn);
+  } else {
+    for (int i = threadIdx.x; i < rows * RW::PIECES; i += blockDim.x) {
+      int row, e, t2, h, b = 0, s = 0;
+      if (!tl.piece(i, RW::PIECES, RW::EPC, row, e, b, t2, s, h)) continue;
+      *reinterpret_cast<uint4*>(out + ((((long long)b * T_len + t2) * S + s) * H + h) * D + e) =
+          *reinterpret_cast<const uint4*>(Qs + row * P + e);
+    }
   }
 }
 
@@ -295,14 +404,15 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // Dynamic shared memory: q, k, v, out, dout of the tile (T_len * R rows
 // each), then p and ds in fp32 over the causal triangle (T_len (T_len + 1) / 2
 // pairs of R rows each).
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 __global__ void __launch_bounds__(max_threads<D>())
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const T* __restrict__ out, const float* __restrict__ lse,
            const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-           T* __restrict__ dv, long long N, int S, int T_len, int H, int R, Map mq,
-           Map mk, Map mv, Map mo, Map md, long long g_row) {
+           T* __restrict__ dv, long long N, int S, int T_len, int H, int R, int D_true,
+           Map mq, Map mk, Map mv, Map mo, Map md, long long g_row) {
   using RW = Row<T, D>;
+  const int Dn = RAGGED ? D_true : D;  // a row's real elements
   constexpr int P = RW::PITCH;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = T_len * R;
@@ -317,8 +427,13 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   {
     const T* const src[5] = {q, k, v, out, dout};
     const Map map[5] = {mq, mk, mv, mo, md};
-    stage_tile<T, D, 5>(tl, Qs, src, map);
+    stage_tile<T, D, 5, RAGGED>(tl, Qs, src, map, Dn);
     hma_mma::cp_async_commit();
+    if constexpr (RAGGED) {
+      hma_mma::cp_async_wait<0>();
+      __syncthreads();
+      align_tile<T, D, 5, RAGGED>(tl, Qs, src, map, Dn);
+    }
   }
   hma_mma::cp_async_wait<0>();
   __syncthreads();
@@ -369,14 +484,20 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < rows * RW::PIECES; i += blockDim.x) {
-    int row, e, t2, h, b = 0, s = 0;
-    if (!tl.piece(i, RW::PIECES, RW::EPC, row, e, b, t2, s, h)) continue;
-    const long long g = (((long long)b * T_len + t2) * S + s) * g_row + h * D + e;
-    const int o = row * P + e;
-    *reinterpret_cast<uint4*>(dq + g) = *reinterpret_cast<const uint4*>(Os + o);
-    *reinterpret_cast<uint4*>(dk + g) = *reinterpret_cast<const uint4*>(Ks + o);
-    *reinterpret_cast<uint4*>(dv + g) = *reinterpret_cast<const uint4*>(Vs + o);
+  if constexpr (RAGGED) {
+    T* const dst[3] = {dq, dk, dv};
+    const T* const src[3] = {Os, Ks, Vs};
+    store_tile_ragged<T, D, 3>(tl, dst, src, g_row, Dn);
+  } else {
+    for (int i = threadIdx.x; i < rows * RW::PIECES; i += blockDim.x) {
+      int row, e, t2, h, b = 0, s = 0;
+      if (!tl.piece(i, RW::PIECES, RW::EPC, row, e, b, t2, s, h)) continue;
+      const long long g = (((long long)b * T_len + t2) * S + s) * g_row + h * D + e;
+      const int o = row * P + e;
+      *reinterpret_cast<uint4*>(dq + g) = *reinterpret_cast<const uint4*>(Os + o);
+      *reinterpret_cast<uint4*>(dk + g) = *reinterpret_cast<const uint4*>(Ks + o);
+      *reinterpret_cast<uint4*>(dv + g) = *reinterpret_cast<const uint4*>(Vs + o);
+    }
   }
 }
 
@@ -417,61 +538,59 @@ inline cudaError_t opt_in(K kernel, unsigned& done) {
   return err;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 int launch_fwd_t(const void* q, const void* k, const void* v, void* out, void* lse,
-                 long long N, int S, int T_len, int H, Map mq, Map mk, Map mv,
+                 long long N, int S, int T_len, int H, int D_true, Map mq, Map mk, Map mv,
                  cudaStream_t stream) {
   static unsigned opted_in = 0;
   const int R = tile_rows(T_len, max_threads<D>(), FWD_TILE_BYTES, fwd_bytes<T, D>);
   if (R == 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = opt_in(fwd_kernel<T, D>, opted_in);
+  const cudaError_t err = opt_in(fwd_kernel<T, D, RAGGED>, opted_in);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (N * H + R - 1) / R;
   const int threads = 32 * ((T_len + 32 / R - 1) / (32 / R));
-  fwd_kernel<T, D><<<(unsigned)tiles, threads, (size_t)fwd_bytes<T, D>(T_len, R), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), N, S, T_len, H, R, mq, mk, mv);
+  fwd_kernel<T, D, RAGGED>
+      <<<(unsigned)tiles, threads, (size_t)fwd_bytes<T, D>(T_len, R), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(out), static_cast<float*>(lse), N, S, T_len, H, R, D_true, mq, mk,
+          mv);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool RAGGED>
 int launch_bwd_t(const void* q, const void* k, const void* v, const void* out,
                  const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                 long long N, int S, int T_len, int H, Map mq, Map mk, Map mv, Map mo,
-                 Map md, long long g_row, cudaStream_t stream) {
+                 long long N, int S, int T_len, int H, int D_true, Map mq, Map mk, Map mv,
+                 Map mo, Map md, long long g_row, cudaStream_t stream) {
   static unsigned opted_in = 0;
   const int R = tile_rows(T_len, max_threads<D>(), BWD_TILE_BYTES, bwd_bytes<T, D>);
   if (R == 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = opt_in(bwd_kernel<T, D>, opted_in);
+  const cudaError_t err = opt_in(bwd_kernel<T, D, RAGGED>, opted_in);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (N * H + R - 1) / R;
   const int threads = 32 * ((T_len + 32 / R - 1) / (32 / R));
-  bwd_kernel<T, D><<<(unsigned)tiles, threads, (size_t)bwd_bytes<T, D>(T_len, R), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(out), static_cast<const float*>(lse),
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), N, S, T_len, H, R, mq, mk, mv, mo, md, g_row);
+  bwd_kernel<T, D, RAGGED>
+      <<<(unsigned)tiles, threads, (size_t)bwd_bytes<T, D>(T_len, R), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const T*>(out), static_cast<const float*>(lse),
+          static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+          static_cast<T*>(dv), N, S, T_len, H, R, D_true, mq, mk, mv, mo, md, g_row);
   return (int)cudaGetLastError();
 }
 
-// Launch the forward for dtype 0 (float32) or 1 (bfloat16) and D 32 or 64;
-// returns cudaGetLastError(), or cudaErrorInvalidValue for anything else.
+// Launch the forward for dtype 0 (float32) or 1 (bfloat16) and any head dim
+// D from 1 to 64; returns cudaGetLastError(), or cudaErrorInvalidValue for
+// anything else.
 inline int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                       long long N, int S, int T_len, int H, int D, int dtype, Map mq,
                       Map mk, Map mv, cudaStream_t stream) {
   if (N <= 0 || S <= 0 || H <= 0 || T_len <= 0 || T_len > MAX_T || N * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32)
-    return launch_fwd_t<float, 32>(q, k, v, out, lse, N, S, T_len, H, mq, mk, mv, stream);
-  if (dtype == 0 && D == 64)
-    return launch_fwd_t<float, 64>(q, k, v, out, lse, N, S, T_len, H, mq, mk, mv, stream);
-  if (dtype == 1 && D == 32)
-    return launch_fwd_t<__nv_bfloat16, 32>(q, k, v, out, lse, N, S, T_len, H, mq, mk, mv,
-                                           stream);
-  if (dtype == 1 && D == 64)
-    return launch_fwd_t<__nv_bfloat16, 64>(q, k, v, out, lse, N, S, T_len, H, mq, mk, mv,
-                                           stream);
-  return (int)cudaErrorInvalidValue;
+  return hma_mma::dispatch(dtype, D, [&](auto body) {
+    using B = decltype(body);
+    return launch_fwd_t<typename B::T, B::DP, B::RAGGED>(q, k, v, out, lse, N, S, T_len, H,
+                                                          D, mq, mk, mv, stream);
+  });
 }
 
 inline int launch_bwd(const void* q, const void* k, const void* v, const void* out,
@@ -481,15 +600,12 @@ inline int launch_bwd(const void* q, const void* k, const void* v, const void* o
                       cudaStream_t stream) {
   if (N <= 0 || S <= 0 || H <= 0 || T_len <= 0 || T_len > MAX_T || N * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-#define HMA_BWD(TT, DD)                                                                  \
-  return launch_bwd_t<TT, DD>(q, k, v, out, lse, dout, dq, dk, dv, N, S, T_len, H, mq, mk, \
-                              mv, mo, md, g_row, stream)
-  if (dtype == 0 && D == 32) HMA_BWD(float, 32);
-  if (dtype == 0 && D == 64) HMA_BWD(float, 64);
-  if (dtype == 1 && D == 32) HMA_BWD(__nv_bfloat16, 32);
-  if (dtype == 1 && D == 64) HMA_BWD(__nv_bfloat16, 64);
-#undef HMA_BWD
-  return (int)cudaErrorInvalidValue;
+  return hma_mma::dispatch(dtype, D, [&](auto body) {
+    using B = decltype(body);
+    return launch_bwd_t<typename B::T, B::DP, B::RAGGED>(q, k, v, out, lse, dout, dq, dk, dv,
+                                                          N, S, T_len, H, D, mq, mk, mv, mo,
+                                                          md, g_row, stream);
+  });
 }
 
 }  // namespace

@@ -17,8 +17,11 @@
 // p and ds of its causal row into shared memory in fp32, and dq; phase (b),
 // after a barrier, a thread per (row, j): dk and dv; no atomics, one exp a
 // pair) is `hma_temporal::bwd_kernel` in temporal_attention.cuh, which K5'
-// shares; here the sites are one axis (S = 1). Rows must start 16-byte
-// aligned. See hma_tpu_torch/ops/temporal_attention.py for the reasoning.
+// shares; here the sites are one axis (S = 1). At D 16, 32 and 64 rows must
+// start 16-byte aligned; any other D up to 64 takes the ragged path (each
+// row's covering 16-byte-aligned chunks copied, then shifted into place and
+// zero-padded in shared memory). See hma_tpu_torch/ops/temporal_attention.py
+// for the reasoning.
 //
 // C entry point: hma_temporal_attention_bwd, returns cudaGetLastError().
 

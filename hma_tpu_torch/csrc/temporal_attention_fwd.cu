@@ -10,9 +10,11 @@
 // sites over lanes; a tile of (site, head) rows with all their frames staged
 // into shared memory by 16-byte cp.async; fp32 softmax and p v in the thread,
 // only out rounded) is `hma_temporal::fwd_kernel` in temporal_attention.cuh,
-// which K5' shares; here the sites are one axis (S = 1). Rows must start
-// 16-byte aligned. See hma_tpu_torch/ops/temporal_attention.py for the
-// reasoning.
+// which K5' shares; here the sites are one axis (S = 1). At D 16, 32 and 64
+// rows must start 16-byte aligned; any other D up to 64 takes the ragged path
+// (each row's covering 16-byte-aligned chunks copied, then shifted into place
+// and zero-padded in shared memory). See hma_tpu_torch/ops/temporal_attention.py
+// for the reasoning.
 //
 // C entry point: hma_temporal_attention_fwd, returns cudaGetLastError().
 

@@ -11,8 +11,9 @@
 //
 // What it computes is what K4' computes, with the same body
 // (`hma_temporal::bwd_kernel`, temporal_attention.cuh; only the strides of the
-// 16-byte row copies differ): all fp32 inside, only dq, dk, dv rounded. Rows
-// must start 16-byte aligned. Bound by bytes: at (8, 12, 128, 8, 64) in bf16 it
+// row copies differ): all fp32 inside, only dq, dk, dv rounded. At D 16, 32
+// and 64 rows must start 16-byte aligned (any other D up to 64 takes the
+// ragged path). Bound by bytes: at (8, 12, 128, 8, 64) in bf16 it
 // reads q, k, v, out, dout and writes dq, dk, dv, 101 MB (~30 us at 3.35 TB/s).
 //
 // C entry point: hma_temporal_resident_bwd, returns cudaGetLastError().

@@ -15,8 +15,9 @@
 //
 // What it computes is what K3' computes, with the same body
 // (`hma_temporal::fwd_kernel`, temporal_attention.cuh; only the strides of the
-// 16-byte row copies differ), so the two agree bit for bit on the same values.
-// Rows must start 16-byte aligned. Bound by bytes: at the d512 card's
+// row copies differ), so the two agree bit for bit on the same values. At D
+// 16, 32 and 64 rows must start 16-byte aligned (any other D up to 64 takes
+// the ragged path). Bound by bytes: at the d512 card's
 // (8, 12, 128, 8, 64) in bf16 it reads q, k, v and writes out, 50 MB (~15 us at
 // 3.35 TB/s).
 //

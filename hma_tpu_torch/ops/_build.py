@@ -15,9 +15,16 @@ source, all at once. `launch_attention` holds the checks and the launch
 that both attention forward kernels share, `launch_attention_bwd` those of
 both backward kernels, `launch_temporal_resident{,_bwd}` those of the
 resident-layout temporal kernel (K5'), and `launch_denoise_loop` the
-scratch and the launch of the denoise-loop kernel. Every attention kernel
-stages rows with 16-byte cp.async copies, so each launcher refuses rows
-that do not start 16-byte aligned.
+scratch and the launch of the denoise-loop kernel.
+
+The attention kernels take every head dim D from 1 to MAX_HEAD_DIM. At D 16,
+32 and 64 (ALIGNED_HEAD_DIMS) they stage rows with 16-byte cp.async copies,
+so each launcher refuses rows there that do not start 16-byte aligned. Any
+other D runs the same bodies at the next of those widths, at any 2-byte
+alignment: each row's covering 16-byte-aligned chunks are copied with
+cp.async and the row is shifted into place and zero-padded in shared
+memory, inside the kernel. Those copies read up to 15 bytes before and
+after a row, never outside its 16-byte-aligned extent. D past 64 raises.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("fused_attention_fwd", "fused_attention_bwd",
            "temporal_attention_fwd", "temporal_attention_bwd",
            "temporal_resident_fwd", "temporal_resident_bwd", "denoise_loop")
-HEAD_DIMS = (32, 64)
+MAX_HEAD_DIM = 64
+ALIGNED_HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,10 +121,11 @@ def aligned16(t: torch.Tensor) -> bool:
 
 
 def rows16(t: torch.Tensor, dtype) -> torch.Tensor:
-    """t in `dtype`, copied when the kernels' 16-byte row copies cannot read
-    it as it is (a D stride other than 1, or a row not 16-byte aligned)."""
+    """t in `dtype`, copied when the kernels cannot read it as it is: a D
+    stride other than 1, or, at a head dim of the aligned path, a row not
+    16-byte aligned."""
     t = t.to(dtype)
-    if t.stride(-1) != 1 or not aligned16(t):
+    if t.stride(-1) != 1 or (t.shape[-1] in ALIGNED_HEAD_DIMS and not aligned16(t)):
         t = t.clone(memory_format=torch.contiguous_format)
     return t
 
@@ -124,24 +133,28 @@ def rows16(t: torch.Tensor, dtype) -> torch.Tensor:
 def _check(name: str, tensors, max_len: int, ndim: int = 4) -> None:
     """Raise unless `tensors` are (lead, L, H, D), or with ndim 5 the
     resident kernel's (B, L, S, H, D), of one shape and dtype (fp32 or bf16)
-    on one device, with D in HEAD_DIMS, 0 < L <= max_len, no empty axis and
-    a unit stride on D, and every row 16-byte aligned (the data pointer and
-    the strides of the other axes), as the kernels' cp.async copies need."""
+    on one device, with 1 <= D <= MAX_HEAD_DIM, 0 < L <= max_len, no empty
+    axis and a unit stride on D, and, where D is in ALIGNED_HEAD_DIMS, every
+    row 16-byte aligned (the data pointer and the strides of the other
+    axes), as the kernels' cp.async copies need there."""
     q = tensors[0]
     if any(t.shape != q.shape for t in tensors) or q.ndim != ndim:
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(f"{name}: dtypes {[t.dtype for t in tensors]}")
     L, D = q.shape[1], q.shape[-1]
-    if D not in HEAD_DIMS or not 0 < L <= max_len or q.numel() == 0:
-        raise ValueError(f"{name}: needs D in {HEAD_DIMS}, 0 < L <= {max_len} "
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} is past the kernels' {MAX_HEAD_DIM}; "
+                         "wider heads (D 128) are still to port (ROADMAP Queue B)")
+    if not 0 < L <= max_len or q.numel() == 0:
+        raise ValueError(f"{name}: needs 1 <= D <= {MAX_HEAD_DIM}, 0 < L <= {max_len} "
                          f"and no empty axis, got {q.shape}")
     if any(t.device != q.device or t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name}: inputs must share a device and have a "
                          "unit stride on D")
-    if not all(map(aligned16, tensors)):
-        raise ValueError(f"{name}: every row must start 16-byte aligned (data "
-                         "pointer and strides); copy a misaligned view first")
+    if D in ALIGNED_HEAD_DIMS and not all(map(aligned16, tensors)):
+        raise ValueError(f"{name}: at D {D} every row must start 16-byte aligned "
+                         "(data pointer and strides); copy a misaligned view first")
 
 
 def launch_attention(name: str, q: torch.Tensor, k: torch.Tensor,

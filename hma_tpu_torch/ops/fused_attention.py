@@ -47,9 +47,19 @@ cp.async; delta is the diagonal of dout out^T on the same tensor cores, so
 that it sums its terms in the order dp does. In fp32, one thread per row on
 CUDA cores, as first ported.
 
-Both take rows that start 16-byte aligned (data pointer and strides, as
-views into the (B, S, 3, H, D) projection do): the forward raises on
-anything else, the backward copies a misaligned dout first.
+Head dims: every D from 1 to 64. At D 16, 32 and 64 (the d128, d256 and
+d512 cards' heads) the bodies above run as they are and take rows that
+start 16-byte aligned (data pointer and strides, as views into the (B, S,
+3, H, D) projection do): the forward raises on anything else, the backward
+copies a misaligned dout first. Any other D (61 on the magvit d512 card,
+d_model 488) runs the same bodies at the next of 16, 32, 64, at any 2-byte
+alignment: the 16-byte-aligned chunks that cover each row are copied with
+cp.async (reading at most 15 bytes on either side of the row, inside its
+16-byte-aligned extent), then the row is shifted into place in shared
+memory with the columns past D zero-filled, so every product equals the
+product over D, and only the D real columns are stored. Padding in the kernel rather than with `F.pad`
+in the wrapper saves three input copies and an output copy a call. D past
+64 (128, which no shipped card uses) raises ValueError.
 
 Public layout (B, S, H, D) with any strides on the first three axes and a
 unit stride on D; `out` comes back contiguous, `lse` as (B, H, S) fp32.
@@ -145,8 +155,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T [causal]) v with q pre-scaled; returns (out, lse).
 
     CPU tensors take the plain version; CUDA tensors launch K1' or raise,
-    also when a row of q, k or v does not start 16-byte aligned (the
-    kernel stages rows with 16-byte asynchronous copies).
+    also for D past 64 and, at D 16, 32 or 64, when a row of q, k or v does
+    not start 16-byte aligned (the kernel stages those rows with 16-byte
+    asynchronous copies).
     """
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, causal)
@@ -164,9 +175,9 @@ def fused_attention_bwd(q, k, v, out, lse, dout, causal: bool = False):
     """(dq, dk, dv) of `fused_attention` from its out and lse.
 
     CPU tensors take the plain version; CUDA tensors launch K2' or raise.
-    dout is cast to q.dtype and copied only when its D stride is not 1 or a
-    row is not 16-byte aligned; q, k, v, out and dout may have any other
-    strides, q, k, v and out with 16-byte-aligned rows.
+    dout is cast to q.dtype and copied only when its D stride is not 1 or,
+    at D 16, 32 or 64, a row is not 16-byte aligned; q, k, v, out and dout
+    may have any other strides, at those D with 16-byte-aligned rows.
     """
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, out, lse, dout, causal)

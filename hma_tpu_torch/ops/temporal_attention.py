@@ -33,9 +33,15 @@ puts them over lanes:
   - fp32 softmax statistics and probs, p v accumulated in fp32 from the
     upcast v, only out rounded to the compute dtype, as the TPU kernel does
     (`temporal_attention.py:49-60`; unlike K1, which rounds probs).
-The rows must start 16-byte aligned (the copies are 16 bytes); q, k, v that
-do not raise ValueError. The main path's views of the qkv projection always
-do (rows of D 32 or 64 elements).
+At D 16, 32 and 64 the rows must start 16-byte aligned (the copies are 16
+bytes); q, k, v that do not raise ValueError. The main path's views of the
+qkv projection always do there. Any other D up to 64 (61 on the magvit d512
+card) runs the same bodies at the next of 16, 32, 64, at any 2-byte
+alignment: the 16-byte-aligned chunks that cover each row are copied with
+cp.async (at most 15 bytes on either side of the row, inside its
+16-byte-aligned extent), then the row is shifted into place and zero-padded
+in shared memory (the extra terms of every dot product and axpy are 0), and
+only the D real elements are stored. D past 64 raises ValueError.
 
 K4' replaces `_bwd_kernel` (entered through `_bwd` and `_vjp_bwd`). Every
 intermediate is fp32 (p, dp, delta, ds and the accumulators); only dq, dk,
@@ -101,8 +107,9 @@ def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Causal attention over the T axis at every site; returns (out, lse).
 
     CPU tensors take the plain version; CUDA tensors launch K3' or raise,
-    also when a row of q, k or v does not start 16-byte aligned (the kernel
-    stages rows with 16-byte asynchronous copies).
+    also for D past 64 and, at D 16, 32 or 64, when a row of q, k or v does
+    not start 16-byte aligned (the kernel stages those rows with 16-byte
+    asynchronous copies).
     """
     if q.device.type == "cpu":
         return fused_temporal_attention_plain(q, k, v)
@@ -120,8 +127,9 @@ def fused_temporal_attention_bwd(q, k, v, out, lse, dout):
     """(dq, dk, dv) of `fused_temporal_attention` from its out and lse.
 
     CPU tensors take the plain version; CUDA tensors launch K4' or raise.
-    dout is cast to q.dtype and copied only when its D stride is not 1 or a
-    row is not 16-byte aligned; q, k, v and out need 16-byte-aligned rows.
+    dout is cast to q.dtype and copied only when its D stride is not 1 or,
+    at D 16, 32 or 64, a row is not 16-byte aligned; q, k, v and out need
+    16-byte-aligned rows there.
     """
     if q.device.type == "cpu":
         return fused_temporal_attention_bwd_plain(q, k, v, out, lse, dout)
@@ -189,7 +197,8 @@ def fused_temporal_attention_resident(q: torch.Tensor, k: torch.Tensor,
     (B, T, S, H, D) contiguous, lse (B*S, H, T) fp32).
 
     CPU tensors take the plain version; CUDA tensors launch K5' or raise,
-    also when a row of q, k or v does not start 16-byte aligned.
+    also for D past 64 and, at D 16, 32 or 64, when a row of q, k or v does
+    not start 16-byte aligned.
     """
     if q.device.type == "cpu":
         return temporal_resident_plain(q, k, v)
@@ -208,8 +217,9 @@ def fused_temporal_attention_resident_bwd(q, k, v, out, lse, dout) -> torch.Tens
     lse, as the slots of one contiguous (B, T, S, 3, H, D).
 
     CPU tensors take the plain version; CUDA tensors launch K5' or raise.
-    dout is cast to q.dtype and copied only when its D stride is not 1 or a
-    row is not 16-byte aligned; q, k, v and out need 16-byte-aligned rows.
+    dout is cast to q.dtype and copied only when its D stride is not 1 or,
+    at D 16, 32 or 64, a row is not 16-byte aligned; q, k, v and out need
+    16-byte-aligned rows there.
     """
     if q.device.type == "cpu":
         return temporal_resident_bwd_plain(q, k, v, out, lse, dout)

@@ -2,8 +2,11 @@
 against the Pallas backward kernels in interpret mode (`_bwd`) and against
 `jax.vjp` of `hma_tpu.models.attention._attend`; the K3' repair (fp32 probs)
 against Pallas K3 in bf16; and the autograd.Functions against the plain
-backwards. The CUDA kernels themselves are held to these plain versions in
-tests/test_torch_kernels_gpu.py and chip_smoke.py.
+backwards. Also at the head dims of the d128 cards (16: K4 against Pallas
+K4 in fp32 and bf16) and of the magvit d512 card (61: against `jax.vjp` of
+`_attend`, which hma_tpu runs there). The CUDA kernels themselves are held
+to these plain versions in tests/test_torch_kernels_gpu.py and
+chip_smoke.py.
 
 Tolerances: fp32 allclose 2e-5 (summation order only). bf16: at most 1 % of
 the outputs may differ from the Pallas kernel at all; a version with the
@@ -109,12 +112,26 @@ def test_temporal_bwd_plain_matches_pallas_fp32():
         np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4", "K2-noncausal"])
+def test_temporal_bwd_plain_matches_pallas_fp32_at_d16():
+    """The d128 cards' head dim, which Pallas K3/K4 take on a TPU."""
+    q, k, v, dout = _inputs((256, 6, 2, 16), seed=7)
+    out, lse, want = _temporal_pallas(q, k, v, dout, jnp.float32)
+    tq, tk, tv = map(_t, (q, k, v))
+    got_out, got_lse = fused_temporal_attention_plain(tq, tk, tv)
+    np.testing.assert_allclose(got_out.numpy(), out, **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), lse, **TOL)
+    got = fused_temporal_attention_bwd_plain(*map(_t, (q, k, v, out, lse, dout)))
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K2-noncausal", "K4-D16"])
 def test_bwd_plain_matches_pallas_bf16(kernel):
     """Same out/lse/dout into both backwards, bf16: the plain version with
     the kernel's own rounding differs on <= 1 % of outputs, the one with
     the other kernel's rounding (the negative control) on more. K2 causal,
-    and non-causal as the main path calls it."""
+    and non-causal as the main path calls it; K4 also at the d128 cards'
+    D 16 (T 6, where interpret mode compiles in seconds)."""
     bf = torch.bfloat16
     if kernel.startswith("K2"):
         causal = kernel == "K2"
@@ -124,7 +141,8 @@ def test_bwd_plain_matches_pallas_bf16(kernel):
         got = fused_attention_bwd_plain(*args, causal)
         control = attention_bwd_plain(*args, causal, False)
     else:
-        q, k, v, dout = _inputs((256, 12, 2, 32), seed=3)
+        shape = (256, 6, 2, 16) if kernel == "K4-D16" else (256, 12, 2, 32)
+        q, k, v, dout = _inputs(shape, seed=3)
         out, lse, want = _temporal_pallas(q, k, v, dout, jnp.bfloat16)
         args = [_t(x, bf) for x in (q, k, v, out)] + [_t(lse), _t(dout, bf)]
         got = fused_temporal_attention_bwd_plain(*args)
@@ -140,12 +158,16 @@ def test_bwd_plain_matches_pallas_bf16(kernel):
 
 
 @pytest.mark.parametrize("causal,shape", [(False, (2, 24, 2, 32)), (True, (256, 5, 2, 32)),
-                                          (True, (64, 1, 2, 64)), (True, (64, 16, 2, 64))],
-                         ids=["False", "True", "T1-D64", "T16-D64"])
+                                          (True, (64, 1, 2, 64)), (True, (64, 16, 2, 64)),
+                                          (False, (2, 40, 2, 16)), (False, (2, 40, 2, 61)),
+                                          (True, (64, 12, 2, 16)), (True, (64, 12, 2, 61))],
+                         ids=["False", "True", "T1-D64", "T16-D64", "D16", "D61",
+                              "T12-D16", "T12-D61"])
 def test_bwd_plain_matches_jax_grad_of_attend(causal, shape):
     """fp32: the plain backward from the plain forward's out and lse equals
     jax.vjp of the XLA attention `_attend`; causal also at T 1 and 16
-    (MAX_T), the temporal kernels' edges."""
+    (MAX_T), the temporal kernels' edges; both at the d128 cards' D 16 and
+    the magvit d512 card's D 61."""
     q, k, v, dout = _inputs(shape, seed=4)
     _, vjp = jax.vjp(lambda a, b, c: jax_attention._attend(
         a, b, c, causal=causal, dtype=jnp.float32), q, k, v)

@@ -1,8 +1,10 @@
 """Port attention ops on the CPU: the plain versions of K1' and K3' against
 the Pallas kernels in interpret mode and against `_attend` (fp32), K1''s in
 bf16 against Pallas K1's rounding of the probs, and the decode step against
-hma_tpu's. The CUDA kernels themselves are held to
-these plain versions in tests/test_torch_kernels_gpu.py."""
+hma_tpu's. Also at the head dims of the d128 cards (16) and the magvit d512
+card (61): K3' at D 16 against Pallas K3, K1' at D 16 and both at D 61
+against `_attend` (hma_tpu runs those on XLA). The CUDA kernels themselves
+are held to these plain versions in tests/test_torch_kernels_gpu.py."""
 
 import jax
 import jax.numpy as jnp
@@ -73,8 +75,9 @@ def test_spatial_fwd_plain_rounds_probs_like_pallas_bf16(causal):
 
 
 @pytest.mark.parametrize("shape,pallas", [((256, 6, 2, 32), True), ((64, 1, 2, 64), False),
-                                          ((64, 16, 2, 64), False)],
-                         ids=["T6-pallas", "T1-D64", "T16-D64"])
+                                          ((64, 16, 2, 64), False), ((256, 6, 2, 16), True),
+                                          ((64, 12, 2, 61), False)],
+                         ids=["T6-pallas", "T1-D64", "T16-D64", "T6-D16-pallas", "T12-D61"])
 def test_temporal_plain_matches_pallas_and_attend(shape, pallas):
     """K3''s plain version against `_attend` (XLA) and its lse against the
     log-sum-exp of the causal logits; at T 6 also against Pallas K3 in
@@ -98,6 +101,23 @@ def test_temporal_plain_matches_pallas_and_attend(shape, pallas):
                                    **TOL)
     out2, _ = fused_temporal_attention(*_t(q, k, v))
     assert torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("D", [16, 61])
+@pytest.mark.parametrize("causal", [False, True])
+def test_spatial_plain_matches_attend_at_other_head_dims(causal, D):
+    """K1''s plain version at the d128 cards' D 16 and the magvit d512
+    card's D 61, where hma_tpu's spatial pass is the XLA `_attend` (Pallas K1
+    takes D 32, 64 and 128): out against `_attend`, lse against the
+    log-sum-exp of the logits."""
+    q, k, v = _make((3, 40, 4, D), seed=4)
+    out, lse = fused_attention_plain(*_t(q, k, v), causal)
+    want = jax_attention._attend(q, k, v, causal=causal, dtype=jnp.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+    logits = jnp.einsum("bnhd,bmhd->bhnm", q, k)
+    if causal:
+        logits = jnp.where(jnp.tril(jnp.ones((40, 40), bool)), logits, -jnp.inf)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, -1)), **TOL)
 
 
 def test_attend_kv_mask_and_end_aligned_causal_match_jax():

@@ -7,9 +7,12 @@ heads, K1'-K5' on misaligned rows, the autograd.Functions' launches, K5'
 (the resident layout's forward and backward, against the plain version and
 bit for bit against K3'/K4' on the same values regrouped, also at T 1 and
 16), K6' (the fused denoise loop), and the MLP dropout under remat on the
-card. Marked gpu: they need a card and skip elsewhere. This file imports no
-JAX, so on a machine without it run it alone, without the JAX-side
-conftest:
+card. K1'-K5' also at the head dims of the other shipped cards: D 16 (the
+aligned path) and D 61 (the ragged path, zero-padded to 64 inside the
+kernel), and on the ragged path at each padded width: D 12 (to 16), 20, 24
+and 27 (to 32); the ragged path takes rows at any alignment. Marked gpu:
+they need a card and skip elsewhere. This file imports no JAX, so on a
+machine without it run it alone, without the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
@@ -80,7 +83,11 @@ def _assert_matches(out, lse, want, want_lse, tol):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 4e-3)])
 @pytest.mark.parametrize("shape,causal", [((8, 320, 8, 32), False),
-                                          ((3, 77, 4, 64), True)])
+                                          ((3, 77, 4, 64), True),
+                                          ((8, 320, 8, 16), False), ((8, 320, 8, 61), False),
+                                          ((3, 77, 4, 12), True), ((3, 77, 4, 61), True),
+                                          ((2, 17, 3, 24), False), ((40, 128, 4, 24), True),
+                                          ((3, 77, 4, 20), True), ((40, 128, 4, 27), False)])
 def test_spatial_kernel_matches_plain(dtype, tol, shape, causal):
     _need_card()
     B, S, H, D = shape
@@ -90,9 +97,13 @@ def test_spatial_kernel_matches_plain(dtype, tol, shape, causal):
 
 
 # K3'/K4' shapes (N, T, H, D): the d256 card's, a ragged one, then the
-# edges: one frame, MAX_T frames, a last site tile left ragged, 3 heads.
+# edges: one frame, MAX_T frames, a last site tile left ragged, 3 heads;
+# then the magvit d128 and d512 cards' (D 16 and 61) and the ragged path
+# padded to 16 (D 12) and to 32 (D 24, 20 and 27).
 TEMPORAL_SHAPES = [(2560, 12, 8, 32), (1000, 5, 3, 64), (77, 1, 8, 32), (77, 16, 8, 64),
-                   (45, 16, 3, 32), (45, 1, 3, 64)]
+                   (45, 16, 3, 32), (45, 1, 3, 64), (2560, 12, 8, 16), (2560, 12, 8, 61),
+                   (45, 16, 3, 61), (45, 5, 3, 12), (45, 12, 3, 24), (77, 16, 8, 20),
+                   (45, 5, 3, 27)]
 
 
 @pytest.mark.gpu
@@ -126,7 +137,11 @@ def _assert_grads_match(got, want, tol):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,causal", [((96, 320, 8, 32), False),
-                                          ((3, 77, 4, 64), True)])
+                                          ((3, 77, 4, 64), True),
+                                          ((96, 320, 8, 16), False), ((96, 320, 8, 61), False),
+                                          ((3, 77, 4, 12), True), ((3, 77, 4, 61), True),
+                                          ((2, 17, 3, 24), False), ((40, 128, 4, 24), True),
+                                          ((3, 77, 4, 20), True), ((40, 128, 4, 27), False)])
 def test_spatial_bwd_kernel_matches_plain(dtype, shape, causal):
     _need_card()
     B, S, H, D = shape
@@ -209,6 +224,34 @@ def test_spatial_kernels_on_misaligned_rows(dtype, tol):
                         fused_attention_bwd_plain(q, k, v, out, lse, dout), tol[1])
 
 
+def _misaligned(lead, H, D, dtype, seed):
+    """q, k, v as views one element into one buffer of (*lead, 3, H, D), and
+    a dout one element into another."""
+    n = math.prod(lead) * H * D
+    g = torch.Generator("cuda").manual_seed(seed)
+    flat = (torch.randn(3 * n + 1, generator=g, device="cuda") * 0.4).to(dtype)
+    q, k, v = flat[1:].view(*lead, 3, H, D).unbind(-3)
+    dout = torch.randn(n + 1, generator=g, device="cuda").to(dtype)[1:].view(*lead, H, D)
+    return q, k, v, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, BWD_FP32_TOL)),
+                                       (torch.bfloat16, (4e-3, BWD_BF16_TOL["K2'"]))])
+def test_spatial_kernels_take_ragged_rows_at_any_alignment(dtype, tol):
+    """At D 61 (the magvit d512 card's head dim) the rows of the
+    (..., 3, H, 61) projection start 2-byte aligned: K1' and K2' take such
+    views as they are (the ragged path copies each row's covering
+    16-byte-aligned chunks and shifts the row into place) and equal the
+    plain versions."""
+    _need_card()
+    q, k, v, dout = _misaligned((3, 77), 4, 61, dtype, seed=13)
+    out, lse = fused_attention(q, k, v)
+    _assert_matches(out, lse, *fused_attention_plain(q, k, v), tol[0])
+    _assert_grads_match(fused_attention_bwd(q, k, v, out, lse, dout),
+                        fused_attention_bwd_plain(q, k, v, out, lse, dout), tol[1])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", TEMPORAL_SHAPES)
@@ -257,6 +300,28 @@ def test_temporal_kernels_on_misaligned_rows(dtype, tol, resident):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, BWD_FP32_TOL)),
+                                       (torch.bfloat16, (1e-2, BWD_BF16_TOL["K4'"]))])
+def test_temporal_kernels_take_ragged_rows_at_any_alignment(dtype, tol, resident):
+    """At D 61, K3'/K4' and K5' take views that start 2-byte aligned as they
+    are and equal the plain versions."""
+    _need_card()
+    q, k, v, dout = _misaligned((2, 5, 7) if resident else (35, 5), 3, 61, dtype, seed=14)
+    fwd, bwd, plain, bwd_plain = (
+        (fused_temporal_attention_resident, fused_temporal_attention_resident_bwd,
+         temporal_resident_plain, temporal_resident_bwd_plain) if resident else
+        (fused_temporal_attention, fused_temporal_attention_bwd,
+         fused_temporal_attention_plain, fused_temporal_attention_bwd_plain))
+    out, lse = fwd(q, k, v)
+    _assert_matches(out, lse, *plain(q, k, v), tol[0])
+    got, want = bwd(q, k, v, out, lse, dout), bwd_plain(q, k, v, out, lse, dout)
+    if resident:
+        got, want = ([x.contiguous() for x in y.unbind(3)] for y in (got, want))
+    _assert_grads_match(got, want, tol[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("temporal", [False, True])
 def test_autograd_function_launches_fwd_and_bwd_kernels(temporal):
     """One forward and backward through the autograd.Function launches the
@@ -287,9 +352,13 @@ def _resident_qkv(shape, dtype, seed):
 
 
 # K5' shapes (B, T, S, H, D): the d512 card's, a ragged one, one frame and
-# MAX_T frames with an S that leaves the last site tile ragged.
+# MAX_T frames with an S that leaves the last site tile ragged; the mar
+# d128 card's (D 16), the magvit d512 card's D 61 with a ragged S, and the
+# ragged path at DP 16 and 32 (D 12, 24, 20, 27).
 RESIDENT_SHAPES = [(8, 12, 128, 8, 64), (3, 5, 7, 3, 32), (2, 1, 11, 8, 64),
-                   (2, 16, 13, 3, 32)]
+                   (2, 16, 13, 3, 32), (8, 12, 128, 8, 16), (2, 12, 13, 8, 61),
+                   (3, 5, 7, 3, 12), (2, 12, 13, 3, 24), (2, 16, 11, 8, 20),
+                   (3, 5, 7, 3, 27)]
 
 
 @pytest.mark.gpu

@@ -37,12 +37,15 @@ torch.set_num_threads(1)
 def tiny_card(qk_norm: bool = False,
               action_network: str = "concat+modulate", **kw) -> dict:
     """2 layers, 2 heads, d 32, T 4, S 16, 8 concat action tokens,
-    1 domain (as tests/test_rollout.py); `kw` overrides."""
-    return dict(num_layers=2, num_heads=2, d_model=32, T=4, S=16,
+    1 domain (as tests/test_rollout.py); `kw` overrides any field, the
+    width and heads (`d_model`, `num_heads`) among them."""
+    card = dict(num_layers=2, num_heads=2, d_model=32, T=4, S=16,
                 image_vocab_size=2**18, num_factored_vocabs=2,
                 action_token_size=8, action_network=action_network,
                 use_actions=True, action_domains=["a"], d_actions=[4],
-                action_stats=[[[0.1, -0.2], [1.5, 0.5]]], qk_norm=qk_norm, **kw)
+                action_stats=[[[0.1, -0.2], [1.5, 0.5]]], qk_norm=qk_norm)
+    card.update(kw)
+    return card
 
 
 def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
