@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all fourteen)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all sixteen)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -152,7 +152,30 @@ Phases, each failing the run on any error:
      launches fill the timed row of the card's rollout shape (B 8) and the
      mar cards' K6' launches phase 9's row (the denoise head is the same on
      every mar card). Every launch count of (ii) and (iii) must land in a
-     record, so a main-path shape that phase 3 never checked fails the run.
+     record, so a main-path shape that phase 3 never checked fails the run;
+ 15. the evaluation rollout surface on the d256 card at full width and depth
+     (B 8, T 12, bf16, weights from seed 0): (a) fp32 at B 1,
+     `window_logits` over frames [2, 5) against `compute_logits`' frames
+     (EXACT_TOL) and with slot 1 zeroed, which must exceed it; (b)
+     `autoregressive_logits` with the prompt over all 12 frames equals
+     `teacher_forced_logits` bit for bit, and with a 1-frame prompt its
+     logits must move; (c) `generate_horizon` over frame 11 equals
+     `generate_tokens_full`'s frame 11 token for token under the same
+     draws, and other draws must change tokens; (d) teacher_forced_logits,
+     autoregressive_logits (2 prompt frames), generate_horizon over frames
+     [2, 4) and window_logits over [2, 5), 2 MaskGIT steps at temperature 0,
+     each after a warm-up with its launch counts set to 0 just before and
+     read just after (K1' 1056, 1408, 64 with 64 of K3', 32), frames/s and a
+     profiler breakdown (the two cached paths' over a 4-frame window); every
+     count lands in a phase-3 record (the window's K1' at B 24);
+ 16. the evaluation entry points on the card: `hma_tpu_torch.evaluate.main`
+     teacher-forced (and once as `python -m hma_tpu_torch.evaluate`) and
+     with --autoregressive_time on a 2-layer d256 checkpoint and a synthetic
+     token dataset; `evaluate_feature.main` in both modes and `evaluate
+     --use_feature` on a 2-layer d512 STMAR checkpoint and a synthetic latent
+     dataset (4 MaskGIT steps); each JSON against the library functions on
+     the same weights, batch and generator seed (EVAL_TOL), with its
+     launch counts.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -601,11 +624,13 @@ def kernel_phase():
     def unrounded_probs(q, k, v, causal):  # K1''s control
         return fused_attention_plain(q, k, v, causal, dtype=torch.float32)[0]
 
-    # main-path shapes (timed): the d256 card's, the d512 STMAR card's, then
+    # main-path shapes (timed): the d256 card's (B 24: phase 15's window of 3
+    # frames), the d512 STMAR card's, then
     # the four other cards' (phase 14): magvit d128, magvit d512 (d_model
     # 488, D 61), mar d128, mar d256, each card's cached rollout at B 8 and
     # its training step at B 8 x T 12 in the transpose layout
     spatial = [((8, 320, 8, 32), False, True), ((96, 320, 8, 32), False, True),
+               ((24, 320, 8, 32), False, True),
                ((8, 128, 8, 64), False, True), ((96, 128, 8, 64), False, True),
                ((8, 320, 8, 16), False, True), ((8, 320, 8, 61), False, True),
                ((8, 128, 8, 16), False, True), ((8, 128, 8, 32), False, True),
@@ -2188,13 +2213,318 @@ def other_card(name, layouts, records):
     del model
 
 
+def eval_batch(model, fn, *args, **kw):
+    """fn(model, ...) under no_grad, synchronised: one evaluation call."""
+    import torch
+
+    with torch.no_grad():
+        out = fn(model, *args, **kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def rollout_surface_phase(records):
+    """Phase 15: the evaluation rollout surface on the d256 card at full width
+    and depth (B 8, T 12, bf16, weights from seed 0): teacher_forced_logits,
+    autoregressive_logits (2 prompt frames), generate_horizon over frames
+    [2, 4) and window_logits over frames [2, 5), with their identities and
+    planted faults, frames/s, busy shares and launch counts."""
+    import torch
+
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.rollout.maskgit import (
+        autoregressive_logits, generate_horizon, generate_tokens_full,
+        teacher_forced_logits)
+
+    cfg = flagship_config(40)
+    model = STMaskGIT(cfg, dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0)).eval()
+    B, P, STEPS, T0, F = 8, 2, 2, 2, 3
+    T, S, L = cfg.T, cfg.S, cfg.num_layers
+    nv, fv = cfg.num_factored_vocabs, cfg.factored_vocab_size
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.image_vocab_size, (B, T, S))).cuda()
+    actions = torch.from_numpy(rng.normal(size=(B, T, cfg.max_d_action))
+                               .astype(np.float32)).cuda()
+    kw = dict(maskgit_steps=STEPS, temperature=0.0, unmask_mode="random")
+    gen = lambda seed=1: torch.Generator("cuda").manual_seed(seed)
+    t_phase = time.perf_counter()
+
+    # (a) fp32 at B 1: window_logits = compute_logits' frames [T0, T0+F)
+    model32 = STMaskGIT(cfg, dtype=torch.float32, device="cuda").eval()
+    model32.load_state_dict(model.state_dict())
+    x, a = tokens[:1], actions[:1]
+    with torch.no_grad():
+        full, _ = model32.compute_logits(x, a, 0)
+        want = full[:, :, T0:T0 + F].reshape(1, nv, fv, F, S).permute(0, 3, 4, 1, 2)
+        k, v = model32.init_cache(1)
+        for t in range(T0):
+            model32.frame_logits(x[:, t], t, k, v, a, 0)
+        got, _, _ = model32.window_logits(x[:, T0:T0 + F], T0, k, v, a, 0)
+        err = (got - want).abs().max().item()
+        k[:, :, T0 - 1] = 0
+        v[:, :, T0 - 1] = 0  # frame T0-1's slot left unwritten
+        bad, _, _ = model32.window_logits(x[:, T0:T0 + F], T0, k, v, a, 0)
+        planted = (bad - want).abs().max().item()
+    print(f"  (a) fp32 window_logits, frames [{T0}, {T0 + F}), vs compute_logits, B=1: "
+          f"max abs err {err:.3e} (tol {EXACT_TOL}); planted fault, slot {T0 - 1} "
+          f"zeroed: {planted:.3e}", flush=True)
+    require(math.isfinite(err) and err <= EXACT_TOL, "window_logits not exact")
+    require(planted > EXACT_TOL, "the window limit misses a zeroed cache slot")
+    del model32, full, want, k, v, got, bad
+
+    # (b) autoregressive_logits with the prompt over every frame is
+    # teacher_forced_logits, bit for bit; with a 1-frame prompt slot t-1
+    # holds the model's sample and the logits must move
+    tf = eval_batch(model, teacher_forced_logits, tokens, actions, 0, gen(), **kw)
+    ar_all = eval_batch(model, autoregressive_logits, tokens, T, actions, 0, gen(), **kw)
+    ar_one = eval_batch(model, autoregressive_logits, tokens, 1, actions, 0, gen(), **kw)
+    moved = (ar_one[1] - tf[1]).abs().max().item()
+    same = torch.equal(ar_all[0], tf[0]) and torch.equal(ar_all[1], tf[1])
+    print(f"  (b) autoregressive_logits, prompt = all {T} frames, vs teacher_forced_logits: "
+          f"bit for bit {same}; planted fault, 1-frame prompt: max abs logit diff "
+          f"{moved:.3e} (limit 0)", flush=True)
+    require(same, "autoregressive_logits over a full prompt is not teacher_forced_logits")
+    require(moved > 0, "the bit-for-bit check misses a sampled history")
+
+    # (c) generate_horizon over one frame is generate_tokens_full's frame
+    g = gen(3)
+    draws = torch.rand((1, STEPS, B, S), generator=g, device="cuda")
+    other = torch.rand((STEPS, B, S), generator=g, device="cuda")
+    hz = eval_batch(model, generate_horizon, tokens, T - 1, T, actions, 0,
+                    unmask_draws=draws[0], **kw)
+    ref = eval_batch(model, generate_tokens_full, tokens, T - 1, actions, 0,
+                     unmask_draws=draws, **kw)[:, T - 1:]
+    hz_other = eval_batch(model, generate_horizon, tokens, T - 1, T, actions, 0,
+                          unmask_draws=other, **kw)
+    fault = (hz_other != ref).float().mean().item()
+    print(f"  (c) generate_horizon [{T - 1}, {T}) vs generate_tokens_full's frame {T - 1}: "
+          f"token for token {torch.equal(hz, ref)}; planted fault, other draws: "
+          f"{fault:.4%} of tokens differ (limit 0)", flush=True)
+    require(torch.equal(hz, ref), "generate_horizon over one frame is not the full rollout's")
+    require(fault > 0, "the token check misses other unmasking draws")
+
+    # (d) timed runs, counted; (b) warmed the two cached paths up. The
+    # profiles of those two run over a 4-frame window (3 decoded frames): the
+    # whole window is ~4 x as many events for the same per-frame picture,
+    # and torch.profiler takes tens of seconds to sum 10^5 events
+    print(f"  (a)-(c): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    k_w, v_w = model.init_cache(B)
+    with torch.no_grad():
+        for t in range(T0):
+            model.frame_logits(tokens[:, t], t, k_w, v_w, actions, 0)
+
+    def tf_run(w=T):
+        return eval_batch(model, teacher_forced_logits, tokens[:, :w], actions[:, :w], 0,
+                          gen(), **kw)
+
+    def ar_run(w=T):
+        return eval_batch(model, autoregressive_logits, tokens[:, :w], P, actions[:, :w],
+                          0, gen(), **kw)
+
+    runs = {
+        "teacher_forced_logits": (tf_run, B * (T - 1), {"K1'": L * (T - 1) * (STEPS + 1)},
+                                  lambda: tf_run(4)),
+        "autoregressive_logits": (ar_run, B * (T - 1), {"K1'": L * (T - 1) * (STEPS + 2)},
+                                  lambda: ar_run(4)),
+        "generate_horizon": (
+            lambda: eval_batch(model, generate_horizon, tokens, 2, 4, actions, 0, gen(),
+                               **kw),
+            B * 2, {"K1'": L * STEPS, "K3'": L * STEPS}, None),
+        "window_logits": (
+            lambda: eval_batch(model, lambda m, *a: m.window_logits(*a),
+                               tokens[:, T0:T0 + F], T0, k_w, v_w, actions, 0),
+            B * F, {"K1'": L}, None),
+    }
+    counted = {}
+    for label, (go, frames, want, short) in runs.items():
+        if short is None:
+            go()  # warm-up, not counted
+        reset_counts()
+        t0 = time.perf_counter()
+        go()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        full_want = {name: want.get(name, 0) for name in counts}
+        print(f"  (d) {label}: {frames} frames in {secs:.4f} s, {frames / secs:.2f} "
+              f"frames/s; launches " + ", ".join(f"{n}={c}" for n, c in counts.items() if c),
+              flush=True)
+        require(counts == full_want, f"{label} launches {counts}, want {full_want}")
+        counted[label] = counts
+        if short is None:
+            profile_run(label, go, secs)
+        else:
+            t0 = time.perf_counter()
+            short()
+            profile_run(f"{label}, a 4-frame window", short, time.perf_counter() - t0)
+    set_launches(records, {
+        ("K1'", (B, 320, 8, 32)): counted["teacher_forced_logits"]["K1'"]
+        + counted["autoregressive_logits"]["K1'"],
+        ("K1'", (B * T, 320, 8, 32)): counted["generate_horizon"]["K1'"],
+        ("K3'", (B * 320, T, 8, 32)): counted["generate_horizon"]["K3'"]}, add=True)
+    set_launches(records, {("K1'", (B * F, 320, 8, 32)): counted["window_logits"]["K1'"]})
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def rel_diff(a: dict, b: dict, keys) -> float:
+    """Largest relative difference of two metric dicts over `keys` (lists
+    element by element)."""
+    worst = 0.0
+    for k in keys:
+        x, y = np.atleast_1d(np.asarray(a[k], float)), np.atleast_1d(np.asarray(b[k], float))
+        require(x.shape == y.shape, f"{k}: shapes {x.shape} and {y.shape}")
+        worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30))))
+    return worst
+
+
+EVAL_TOL = 1e-6  # phase 16: a CLI's metrics against the library's, relative
+
+
+def eval_entry_phase():
+    """Phase 16: `python -m hma_tpu_torch.evaluate` (teacher-forced and
+    --autoregressive_time) on a 2-layer d256 checkpoint and a synthetic token
+    dataset, and `evaluate --use_feature` and `evaluate_feature` in both modes
+    on a 2-layer d512 STMAR checkpoint and a synthetic latent dataset, on the
+    card; each JSON against the library functions on the same weights, batch
+    and generator seed (EVAL_TOL)."""
+    import os
+
+    import torch
+
+    from hma_tpu_torch.data.datasets import RawFeatureDataset, RawTokenDataset
+    from hma_tpu_torch.evaluate import main as evaluate_main
+    from hma_tpu_torch.evaluate_feature import load_mar_model
+    from hma_tpu_torch.evaluate_feature import main as evaluate_feature_main
+    from hma_tpu_torch.generate import load_model
+    from hma_tpu_torch.metrics.token import teacher_forced_metrics
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.rollout.mar import generate_latents, teacher_forced_latents
+    from hma_tpu_torch.rollout.maskgit import autoregressive_logits, teacher_forced_logits
+    from hma_tpu_torch.utils.checkpoint import save_checkpoint
+
+    B, P = 2, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = flagship_config(40)
+        cfg.num_layers = 2
+        model = STMaskGIT(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+        write_dataset(tmp / "data", cfg, seed=2)
+        save_checkpoint(str(tmp), "ckpt", model.state_dict(), cfg)
+        del model
+        base = ["--checkpoint_dir", str(tmp / "ckpt"), "--val_data_dir", str(tmp / "data"),
+                "--batch_size", str(B), "--max_examples", str(B), "--seed", "4",
+                "--device", "cuda"]
+        model, cfg = load_model(str(tmp / "ckpt"), "cuda", torch.bfloat16)
+        ds = RawTokenDataset(tmp / "data", window_size=cfg.T, use_actions=True)
+        items = [ds[i] for i in range(B)]
+        tokens = torch.from_numpy(np.stack([it["input_ids"] for it in items])
+                                  .reshape(B, cfg.T, -1).astype(np.int64)).cuda()
+        acts = np.stack([it["action_ids"] for it in items]).astype(np.float32)
+        acts = torch.from_numpy(np.pad(acts, ((0, 0), (0, 0),
+                                              (0, cfg.max_d_action - acts.shape[-1])))).cuda()
+        keys = ("loss", "perplexity", "acc")
+        for mode in ("teacher_forced", "autoregressive"):
+            extra = ["--autoregressive_time", "--num_prompt_frames", str(P)] \
+                if mode == "autoregressive" else []
+            reset_counts()
+            got = evaluate_main([*base, "--output_dir", str(tmp / mode), *extra])
+            counts = read_counts()
+            g = torch.Generator("cuda").manual_seed(4)
+            with torch.no_grad():
+                if mode == "autoregressive":
+                    _, logits = autoregressive_logits(model, tokens, P, acts, 0, g)
+                else:
+                    _, logits = teacher_forced_logits(model, tokens, acts, 0, g)
+            want = {k: float(v) for k, v in teacher_forced_metrics(
+                logits, tokens[:, 1:], cfg.factored_vocab_size).items()}
+            diff = rel_diff(got, want, keys)
+            k1 = counts["K1'"]
+            print(f"  evaluate [{mode}]: {json.dumps(got)}; library {want}; max rel diff "
+                  f"{diff:.3e} (tol {EVAL_TOL}); launches K1'={k1}", flush=True)
+            require(diff <= EVAL_TOL and got["num_examples"] == B, f"evaluate [{mode}]")
+            per_frame = 3 if mode == "teacher_forced" else 4  # 2 MaskGIT steps + fills
+            require(k1 == cfg.num_layers * (cfg.T - 1) * per_frame,
+                    f"evaluate [{mode}] launches {counts}")
+            if mode == "teacher_forced":
+                proc = subprocess.run(
+                    [sys.executable, "-m", "hma_tpu_torch.evaluate", *base,
+                     "--output_dir", str(tmp / "module")], cwd=ROOT, capture_output=True,
+                    text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+                require(proc.returncode == 0, f"python -m hma_tpu_torch.evaluate: {proc.stderr}")
+                mod = json.loads(proc.stdout.strip().splitlines()[-1])
+                diff = rel_diff(mod, got, keys)
+                print(f"  python -m hma_tpu_torch.evaluate: {json.dumps(mod)}; max rel diff "
+                      f"to the in-process run {diff:.3e}", flush=True)
+                require(diff <= EVAL_TOL, "python -m hma_tpu_torch.evaluate")
+        del model, logits
+
+        cfg = mar_flagship_config(40)
+        cfg.num_layers = 2
+        model = STMAR(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+        write_latent_dataset(tmp / "lat", cfg, seed=5)
+        save_checkpoint(str(tmp), "mar", model.state_dict(), cfg)
+        del model
+        STEPS = 4
+        base = ["--checkpoint_dir", str(tmp / "mar"), "--val_data_dir", str(tmp / "lat"),
+                "--batch_size", str(B), "--max_examples", str(B), "--seed", "6",
+                "--maskgit_steps", str(STEPS), "--num_prompt_frames", str(P),
+                "--device", "cuda"]
+        model, cfg = load_mar_model(str(tmp / "mar"), "cuda", torch.bfloat16)
+        ds = RawFeatureDataset(tmp / "lat", window_size=cfg.T, use_actions=True)
+        items = [ds[i] for i in range(B)]
+        lat = torch.from_numpy(np.stack([it["input_ids"] for it in items]).reshape(
+            B, cfg.T, cfg.h, cfg.h, cfg.vae_embed_dim).astype(np.float32)).cuda()
+        acts = np.stack([it["action_ids"] for it in items]).astype(np.float32)
+        acts = torch.from_numpy(np.pad(acts, ((0, 0), (0, 0),
+                                              (0, cfg.max_d_action - acts.shape[-1])))).cuda()
+        keys = ("latent_mse", "latent_mse_per_frame")
+        for mode in ("teacher_forced", "autoregressive"):
+            reset_counts()
+            got = evaluate_feature_main([*base, "--output_dir", str(tmp / f"f_{mode}"),
+                                         "--eval_mode", mode])
+            counts = read_counts()
+            via = evaluate_main([*base, "--output_dir", str(tmp / f"v_{mode}"),
+                                 "--use_feature", "--temperature", "1.0",
+                                 *(["--autoregressive_time"] if mode == "autoregressive"
+                                   else [])])
+            g = torch.Generator("cuda").manual_seed(6)
+            with torch.no_grad():
+                if mode == "teacher_forced":
+                    out = torch.cat([lat[:, :1], teacher_forced_latents(
+                        model, lat, acts, 0, g, maskgit_steps=STEPS)], 1)
+                else:
+                    out = generate_latents(model, lat, P, acts, 0, g, maskgit_steps=STEPS)
+            t1 = 1 if mode == "teacher_forced" else P
+            err = (out[:, t1:].float() - lat[:, t1:]) ** 2
+            want = {"latent_mse": err.mean().item(),
+                    "latent_mse_per_frame": err.mean(dim=(0, 2, 3, 4)).double().tolist()}
+            diff = max(rel_diff(got, want, keys), rel_diff(via, got, keys))
+            frames = cfg.T - t1
+            print(f"  evaluate_feature [{mode}]: latent_mse {got['latent_mse']:.6f} "
+                  f"(library {want['latent_mse']:.6f}, evaluate --use_feature "
+                  f"{via['latent_mse']:.6f}), gen_time {got['gen_time']:.4f} s a frame; "
+                  f"max rel diff {diff:.3e} (tol {EVAL_TOL}); launches {counts}", flush=True)
+            require(diff <= EVAL_TOL and got["num_examples"] == B,
+                    f"evaluate_feature [{mode}]")
+            require(math.isfinite(got["latent_mse"]) and len(got["latent_mse_per_frame"])
+                    == frames, f"evaluate_feature [{mode}] output")
+            # a frame: STEPS refinement forwards and a cache fill, and in
+            # teacher forcing a ground-truth fill; autoregressive: P prefills
+            forwards = (frames * (STEPS + 2) if mode == "teacher_forced"
+                        else P + frames * (STEPS + 1))
+            require(counts["K6'"] == frames * STEPS
+                    and counts["K1'"] == cfg.num_layers * forwards,
+                    f"evaluate_feature [{mode}] launches {counts}")
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 15)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 17)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -2231,7 +2561,11 @@ def main(argv=None) -> int:
              (12, "STMAR gradient exactness, card vs CPU, both layouts", mar_exactness_phase),
              (13, "entry point: train_multi --model_type continuous, then generate",
               mar_train_entry_phase),
-             (14, "the four other shipped cards", lambda: other_cards_phase(records))]
+             (14, "the four other shipped cards", lambda: other_cards_phase(records)),
+             (15, "the evaluation rollout surface, d256 card",
+              lambda: rollout_surface_phase(records)),
+             (16, "entry points: evaluate, evaluate --use_feature, evaluate_feature",
+              eval_entry_phase)]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()
@@ -2239,7 +2573,7 @@ def main(argv=None) -> int:
             run()
             print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if {3, 4, 6, 9, 11, 14} <= phases:  # every kernel of the main paths was launched
+    if {3, 4, 6, 9, 11, 14, 15} <= phases:  # every kernel of the main paths was launched
         for r in records:
             require(r["launches"], f"{r['name']} {r['shape']} never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -25,6 +25,7 @@ from hma_tpu_torch.config import DiffusionGenieConfig
 from hma_tpu_torch.data.datasets import SVD_SCALE, RawFeatureDataset, RawTokenDataset
 from hma_tpu_torch.rollout.mar import make_mar_generator, teacher_forced_latents
 from hma_tpu_torch.rollout.maskgit import make_generator, teacher_forced_logits
+from hma_tpu_torch.train.trainer import _pad_actions
 from hma_tpu_torch.utils.checkpoint import load_checkpoint
 
 
@@ -60,11 +61,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _pad_actions(a: np.ndarray, width: int) -> np.ndarray:
-    if a.shape[-1] == width:
-        return a
-    pad = np.zeros((*a.shape[:-1], width - a.shape[-1]), a.dtype)
-    return np.concatenate([a, pad], axis=-1)
+def load_model(checkpoint_dir: str, device, dtype=torch.bfloat16):
+    """(model, config) of a discrete (STMaskGIT) checkpoint, in eval mode on
+    `device`; `checkpoint_dir` is a checkpoint or a run directory (then its
+    newest `step_*` one)."""
+    model, config = load_checkpoint(checkpoint_dir, device, dtype)
+    if isinstance(config, DiffusionGenieConfig):
+        raise ValueError(f"{checkpoint_dir} holds a continuous (STMAR) model; "
+                         "evaluate it with --use_feature")
+    return model, config
 
 
 def _load(args):

@@ -18,8 +18,12 @@
 - `SelfAttention.decode_step` is one timestep against a read-only temporal
   KV cache; it is plain PyTorch, as its JAX counterpart is plain XLA, and
   rounds its probs to the compute dtype as `_attend` does.
+- `SelfAttention.decode_window` is F consecutive timesteps against the
+  same cache, causal within the window: plain PyTorch as well (its JAX
+  counterpart is XLA einsums), scores in fp32, probs rounded to the
+  compute dtype before p v.
 
-`decode_window` and `CrossAttention` are not ported yet. `attn_drop` is not
+`CrossAttention` is not ported yet. `attn_drop` is not
 an argument: `hma_tpu`'s attention builds its dropout and never calls it, a
 quirk of the reference, so it is a no-op there.
 """
@@ -38,7 +42,7 @@ from hma_tpu_torch.ops.temporal_attention import (
     FusedTemporalResident,
 )
 
-NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # decode_step's mask value
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # the decode paths' mask value
 
 
 class Dense(nn.Linear):
@@ -173,3 +177,27 @@ class SelfAttention(nn.Module):
         out = pv.view(N, H, H, D)[:, heads, heads]  # (N, H, D)
         out = out + probs[..., t_max:].float() * v[:, 0].float()
         return self.proj(out.to(self.dtype).reshape(N, 1, H * D)), k, v
+
+    def decode_window(self, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, t0: int):
+        """Causal attention for the F timesteps [t0, t0+F) against a
+        read-only KV cache holding timesteps < t0.
+
+        x: (N, F, C); k_cache/v_cache: (N, T_max, H, D). Returns (out (N, F,
+        C), k_w, v_w) with the window's (N, F, H, D) slices for the caller
+        to write. Cache slots below t0 are valid, window slot j sees window
+        slots <= j; scores and softmax in fp32, probs cast to the compute
+        dtype before the p v product.
+        """
+        N, F_, C = x.shape
+        q, k, v = self._qkv(x)  # (N, F, H, D)
+        t_max = k_cache.shape[1]
+        k_all = torch.cat([k_cache, k], 1)  # (N, T_max + F, H, D)
+        v_all = torch.cat([v_cache, v], 1)
+        col = torch.arange(t_max + F_, device=x.device)[None, :]
+        row = torch.arange(F_, device=x.device)[:, None]
+        valid = torch.where(col < t_max, col < t0, col - t_max <= row)
+        scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k_all.float())
+        probs = torch.softmax(scores.masked_fill(~valid, NEG_INF), -1).to(self.dtype)
+        out = torch.einsum("bhnm,bmhd->bnhd", probs, v_all.to(self.dtype))
+        return self.proj(out.reshape(N, F_, C)), k, v

@@ -3,9 +3,9 @@
 
 Ported: `compute_logits` (full forward), the training loss (`forward`,
 `compute_video_loss_and_acc`, `smoothed_ce_floor`), `init_cache` and
-`frame_logits` (one frame against the temporal KV cache). The pooled
-action readout and action loss (`jointly_predict_actions`) and
-`window_logits` are not ported yet.
+`frame_logits` (one frame against the temporal KV cache) and
+`window_logits` (F frames against it in one pass). The pooled action
+readout and action loss (`jointly_predict_actions`) are not ported yet.
 
 Parameters are fp32 and are cast to the compute `dtype` at use, as in the
 JAX model, so a converted `hma_tpu` tree (`convert.params_from_jax`) loads
@@ -239,4 +239,32 @@ class STMaskGIT(nn.Module):
             x_SC, t, k_cache, v_cache, action_emb, domain_id, update_cache)
         logits = self.out_x_proj(x_SC[:, :S] * self.readout_scale).float()
         return (logits.reshape(B, S, cfg.num_factored_vocabs,
+                               cfg.factored_vocab_size), k_cache, v_cache)
+
+    def window_logits(self, tokens_FS: torch.Tensor, t0: int, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, action_ids: Optional[torch.Tensor] = None,
+                      domain_id: int = 0, write_frames: int = 0):
+        """Cached forward over the frames [t0, t0+F) in one pass.
+
+        tokens_FS: (B, F, S) ids. Returns (logits (B, F, S, nv, fv) fp32,
+        k_cache, v_cache) with the first `write_frames` frames' slots written
+        in place. Equal to the full forward's frames [t0, t0+F) when the
+        caches hold frames < t0; the spatial pass runs K1' over B*F frames.
+        """
+        cfg = self.config
+        B, F_, S = tokens_FS.shape
+        x_FSC = self.token_embed(tokens_FS)
+        action_emb = None
+        if action_ids is not None and cfg.num_domains > 0:
+            action_emb = self._action_embedding(action_ids, domain_id)
+            if "concat" in cfg.action_network:
+                cond = action_emb[:, t0:t0 + F_, None, :].expand(
+                    B, F_, cfg.action_token_size, cfg.d_model)
+                x_FSC = torch.cat([x_FSC, cond.to(self.dtype)], dim=2)
+        S_tot = x_FSC.shape[2]
+        x_FSC = x_FSC + self.pos_embed_TSC[:, t0:t0 + F_, :S_tot].to(self.dtype)
+        x_FSC, k_cache, v_cache = self.decoder.window_step(
+            x_FSC, t0, k_cache, v_cache, action_emb, domain_id, write_frames)
+        logits = self.out_x_proj(x_FSC[:, :, :S] * self.readout_scale).float()
+        return (logits.reshape(B, F_, S, cfg.num_factored_vocabs,
                                cfg.factored_vocab_size), k_cache, v_cache)

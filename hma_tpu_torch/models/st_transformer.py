@@ -7,7 +7,10 @@ self-attention over T at each spatial site, MLP. Both temporal layouts are
 ported: "transpose" (the default: (B, T, S, C) <-> (B, S, T, C) around the
 temporal half) and "resident" (the stream stays (B, T, S, C) and the causal
 pass reads the qkv projection in place, K5'); so is remat of every block
-("full" policy). `window_step` and `scan_layers` are not (the converter
+("full" policy), and both cached decode paths: `frame_step` (one frame)
+and `window_step` (frames [t0, t0+F) in one pass, spatial attention through
+K1' over all B*F frames, the temporal half through
+`SelfAttention.decode_window`). `scan_layers` is not ported (the converter
 unstacks a `layers_scan` tree).
 
 MLP dropout (`mlp_drop`, after the GELU and after fc2, as `hma_tpu`'s Mlp)
@@ -163,6 +166,24 @@ class STBlock(nn.Module):
         x_TC = x_TC + self.mlp(self._pre(self.norm2, x_TC))
         return x_TC.reshape(B, S, C), k_t, v_t
 
+    def window_step(self, x_FSC: torch.Tensor, t0: int, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
+                    domain_id: int = 0):
+        """Decode of the frames [t0, t0+F) in one pass. x_FSC: (B, F, S, C);
+        k/v_cache: (B*S, T_max, H, D) holding frames < t0, read-only.
+        Returns (x_FSC, k_w, v_w) with the window's (B*S, F, H, D) slices."""
+        B, F_, S, C = x_FSC.shape
+        x_SC = x_FSC.reshape(B * F_, S, C)
+        x_SC = x_SC + self.spatial_attn(self._pre(self.norm1, x_SC))
+        x_FSC = x_SC.reshape(B, F_, S, C)
+        if action_emb is not None and self.inject:
+            x_FSC = self._inject(x_FSC, action_emb[:, t0:t0 + F_, None], domain_id)
+        x_TC = x_FSC.transpose(1, 2).reshape(B * S, F_, C)
+        attn_out, k_w, v_w = self.temporal_attn.decode_window(x_TC, k_cache, v_cache, t0)
+        x_TC = x_TC + attn_out
+        x_TC = x_TC + self.mlp(self._pre(self.norm2, x_TC))
+        return x_TC.reshape(B, S, F_, C).transpose(1, 2), k_w, v_w
+
 
 class STTransformerDecoder(nn.Module):
     """Stack of STBlocks (loop layout: `layers.<i>`).
@@ -225,3 +246,19 @@ class STTransformerDecoder(nn.Module):
                 k_cache[i, :, t] = k_t[:, 0]
                 v_cache[i, :, t] = v_t[:, 0]
         return x_SC, k_cache, v_cache
+
+    def window_step(self, x_FSC: torch.Tensor, t0: int, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
+                    domain_id: int = 0, write_frames: int = 0):
+        """x_FSC: (B, F, S, C) for the frames [t0, t0+F); k/v_cache: (L, B*S,
+        T_max, H, D). The first `write_frames` frames' KV slices are written
+        in place into slots [t0, t0+write_frames) of the caches, layer by
+        layer; with 0 the caches are not touched. Returns (x_FSC, k_cache,
+        v_cache), the caches being the same tensors."""
+        for i, layer in enumerate(self.layers):
+            x_FSC, k_w, v_w = layer.window_step(x_FSC, t0, k_cache[i], v_cache[i],
+                                                action_emb, domain_id)
+            if write_frames > 0:
+                k_cache[i, :, t0:t0 + write_frames] = k_w[:, :write_frames]
+                v_cache[i, :, t0:t0 + write_frames] = v_w[:, :write_frames]
+        return x_FSC, k_cache, v_cache

@@ -11,11 +11,18 @@ Sampling follows the JAX engine: per-factor argmax at temperature ~ 0, else
 categorical draws from a `torch.Generator`; re-masking keeps the n
 least-confident tokens masked per the cosine schedule, ordered by
 confidence ("greedy") or by uniform draws ("random", the default).
-`jax.random` and `torch.Generator` never give the same numbers, so
-`generate_tokens`, `generate_tokens_full` and `teacher_forced_logits` also
-take the "random"-mode draws as a tensor `unmask_draws` of shape
-(frames, maskgit_steps, B, S). `generate_horizon` and
-`autoregressive_logits` are not ported yet.
+`jax.random` and `torch.Generator` never give the same numbers, so every
+function here also takes the "random"-mode draws as a tensor
+`unmask_draws`: of shape (frames, maskgit_steps, B, S) for the per-frame
+ones (`generate_tokens`, `generate_tokens_full`, `teacher_forced_logits`,
+`autoregressive_logits`), (maskgit_steps, B, H*S) for `generate_horizon`,
+which unmasks the H frames of its horizon together.
+
+The evaluation surface: `teacher_forced_logits` (ground-truth history) and
+`autoregressive_logits` (frame t sees [GT_0 .. GT_{t-2}, sample_{t-1}], the
+reference's `--autoregressive_time`), both over the cache, and
+`generate_horizon`, which refines frames [out_t_min, out_t_max) jointly
+with full-stack forwards.
 """
 
 from __future__ import annotations
@@ -241,3 +248,74 @@ def teacher_forced_logits(model: STMaskGIT, tokens_TS, action_ids, domain_id,
         samples.append(tokens_t)
         logits.append(logits_t)
     return torch.stack(samples, dim=1), torch.stack(logits, dim=1)
+
+
+@torch.no_grad()
+def autoregressive_logits(model: STMaskGIT, tokens_TS, num_prompt_frames: int,
+                          action_ids, domain_id, generator=None, *,
+                          maskgit_steps: int = 2, temperature: float = 0.0,
+                          unmask_mode: str = "random",
+                          unmask_draws: Optional[torch.Tensor] = None):
+    """Per-frame MaskGIT samples/logits with autoregressive history: frame
+    t's context is [GT_0 .. GT_{t-2}, sample_{t-1}] (the prompt's frames
+    stay ground truth); samples do not accumulate in the context.
+
+    `frame_logits` writes the caches in place, so the order of the two
+    fills is the semantics: slot t-2 is re-filled with ground truth (undoing
+    the previous step's sample) before slot t-1 is filled, so the sample's
+    deeper KVs condition on the all-GT prefix. 2 + maskgit_steps cached
+    forwards a frame. unmask_draws: optional (T-1, steps, B, S).
+
+    Returns (samples (B, T-1, S), logits (B, T-1, S, nv, fv)).
+    """
+    B, T, S = tokens_TS.shape
+    k_cache, v_cache = model.init_cache(B, with_actions=action_ids is not None)
+    prev = tokens_TS[:, 0]  # unused until t - 1 passes the prompt
+    samples, logits = [], []
+    for i, t in enumerate(range(1, T)):
+        tm2 = max(t - 2, 0)
+        model.frame_logits(tokens_TS[:, tm2], tm2, k_cache, v_cache, action_ids,
+                           domain_id)
+        fill = tokens_TS[:, t - 1] if t - 1 < num_prompt_frames else prev
+        model.frame_logits(fill, t - 1, k_cache, v_cache, action_ids, domain_id)
+        masked = torch.full((B, S), model.mask_token_id, dtype=tokens_TS.dtype,
+                            device=tokens_TS.device)
+        prev, logits_t = _maskgit_refine(
+            model, masked, t, k_cache, v_cache, action_ids, domain_id, generator,
+            None if unmask_draws is None else unmask_draws[i],
+            maskgit_steps=maskgit_steps, temperature=temperature,
+            unmask_mode=unmask_mode)
+        samples.append(prev)
+        logits.append(logits_t)
+    return torch.stack(samples, dim=1), torch.stack(logits, dim=1)
+
+
+@torch.no_grad()
+def generate_horizon(model: STMaskGIT, prompt_TS, out_t_min: int, out_t_max: int,
+                     action_ids, domain_id, generator=None, *, maskgit_steps: int = 2,
+                     temperature: float = 0.0, unmask_mode: str = "random",
+                     unmask_draws: Optional[torch.Tensor] = None):
+    """MaskGIT-decode the frames [out_t_min, out_t_max) jointly: each step
+    is one full-stack `compute_logits` over the window (frames from
+    out_t_min on masked), and the schedule runs over all H*S tokens of the
+    horizon, since its frames condition on one another through the causal
+    temporal attention as they unmask. unmask_draws: optional (steps, B,
+    H*S), one uniform a token a step.
+
+    Returns (B, out_t_max - out_t_min, S) ids.
+    """
+    cfg = model.config
+    B, T, S = prompt_TS.shape
+    H = out_t_max - out_t_min
+    nv, fv = cfg.num_factored_vocabs, cfg.factored_vocab_size
+    cur = _masked_prompt(model, prompt_TS, out_t_min)
+    unmasked = torch.zeros((B, H * S), dtype=torch.bool, device=cur.device)
+    for step, n in enumerate(maskgit_mask_counts(maskgit_steps, H * S)):
+        logits_full, _ = model.compute_logits(cur, action_ids, domain_id)
+        lt = logits_full[:, :, out_t_min:out_t_max].reshape(B, nv, fv, H * S)
+        window, unmasked = _remask(
+            lt.permute(0, 3, 1, 2), cur[:, out_t_min:out_t_max].reshape(B, H * S),
+            unmasked, n, None if unmask_draws is None else unmask_draws[step],
+            generator, temperature, unmask_mode, model.mask_token_id)
+        cur[:, out_t_min:out_t_max] = window.view(B, H, S)
+    return cur[:, out_t_min:out_t_max]

@@ -83,6 +83,7 @@ def _assert_matches(out, lse, want, want_lse, tol):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 4e-3)])
 @pytest.mark.parametrize("shape,causal", [((8, 320, 8, 32), False),
+                                          ((24, 320, 8, 32), False),
                                           ((3, 77, 4, 64), True),
                                           ((8, 320, 8, 16), False), ((8, 320, 8, 61), False),
                                           ((3, 77, 4, 12), True), ((3, 77, 4, 61), True),

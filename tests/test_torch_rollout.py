@@ -14,22 +14,9 @@ from hma_tpu_torch.rollout.maskgit import (
     generate_tokens_full,
     teacher_forced_logits,
 )
-from torch_port_helpers import build_pair, to_torch
+from torch_port_helpers import build_pair, jax_unmask_draws, to_torch
 
 PROMPT, STEPS = 1, 2
-
-
-def jax_unmask_draws(key, frames: int, B: int, S: int) -> np.ndarray:
-    """The "random"-mode uniforms of hma_tpu's rollouts, (frames, STEPS, B, S):
-    one key per frame (split of `key`), one per step (split of the frame's
-    key), and the second half of each step key's split feeds the uniforms
-    (rollout/maskgit.py:106,89-95 and :178-181, :229,211-216)."""
-    out = np.zeros((frames, STEPS, B, S), np.float32)
-    for i, k_frame in enumerate(jax.random.split(key, frames)):
-        for j, k_step in enumerate(jax.random.split(k_frame, STEPS)):
-            _, k_conf = jax.random.split(k_step)
-            out[i, j] = np.asarray(jax.random.uniform(k_conf, (B, S)))
-    return out
 
 
 @pytest.mark.parametrize("mode", ["greedy", "random"])
@@ -47,7 +34,7 @@ def test_generate_tokens_match_jax(mode):
     np.testing.assert_array_equal(want, want_full)
     draws = None
     if mode == "random":
-        draws = torch.from_numpy(jax_unmask_draws(key, T - PROMPT, B, S))
+        draws = torch.from_numpy(jax_unmask_draws(key, T - PROMPT, B, S, STEPS))
     x, acts = to_torch(tokens), to_torch(actions)
     got, got_logits = generate_tokens(tm, x, PROMPT, acts, 0, unmask_draws=draws,
                                       return_logits=True, **kw)

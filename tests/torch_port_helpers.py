@@ -1,6 +1,6 @@
 """Shared set-up for the tests/test_torch_*.py files: one tiny discrete and
 one tiny continuous card built in both packages, JAX weights converted into
-the port, the JAX rollouts' random draws rebuilt as tensors, and the JAX
+the port, the JAX rollouts' random draws rebuilt as arrays, and the JAX
 training forwards' draws (dropout masks, diffusion timesteps and noise,
 action masks) recorded to hand to the port.
 
@@ -77,6 +77,30 @@ def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
 def to_torch(x: np.ndarray) -> torch.Tensor:
     x = np.asarray(x)
     return torch.from_numpy(x.astype(np.int64) if x.dtype.kind in "iu" else x)
+
+
+def jax_unmask_draws(key, frames: int, B: int, S: int, steps: int = 2) -> np.ndarray:
+    """The "random"-mode uniforms of hma_tpu's per-frame rollouts,
+    (frames, steps, B, S): one key per frame (split of `key`), one per step
+    (split of the frame's key), and the second half of each step key's split
+    feeds the uniforms (rollout/maskgit.py:106,89-95 and :178-181,
+    :229,211-216)."""
+    out = np.zeros((frames, steps, B, S), np.float32)
+    for i, k_frame in enumerate(jax.random.split(key, frames)):
+        out[i] = jax_horizon_draws(k_frame, steps, B, S)
+    return out
+
+
+def jax_horizon_draws(key, steps: int, B: int, n: int) -> np.ndarray:
+    """The "random"-mode uniforms of one hma_tpu MaskGIT refinement over n
+    tokens a row, (steps, B, n): one key per step (split of `key`), the
+    second half of its split feeding the uniforms; `generate_horizon` draws
+    them so over its H*S tokens (rollout/maskgit.py:397-420)."""
+    out = np.zeros((steps, B, n), np.float32)
+    for j, k_step in enumerate(jax.random.split(key, steps)):
+        _, k_conf = jax.random.split(k_step)
+        out[j] = np.asarray(jax.random.uniform(k_conf, (B, n)))
+    return out
 
 
 def tiny_mar_card(**kw) -> dict:
