@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all eighteen)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all nineteen)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -207,7 +207,28 @@ Phases, each failing the run on any error:
      steps at 1 MaskGIT step, token for token; the d512 STMAR card's
      simulator (16 x 100, latents out) for 3 steps after a warm-up, with
      its K1' and K6' launches; `sim.app.build_simulator` on a 2-layer d256
-     checkpoint and the `.ckpt`, then `InteractiveDigitalWorld.run(3)`.
+     checkpoint and the `.ckpt`, then `InteractiveDigitalWorld.run(3)`;
+ 19. the continuous family's pixel side: the SVD temporal VAE at full width
+     (`SVDTemporalVAE()`, 97.7M parameters, weights from seed 0, every tensor
+     perturbed, written as a diffusers-layout state-dict file): (a) fp32 on
+     the card against the CPU through `load_svd_decoder` (a (1, 3, 8, 8, 4)
+     clip of raw latents) and `encode` (its 64² frames), VAE_CARD_TOL of
+     max|x|; (b) bf16 against fp32 on the card at the d512 card's grid (T
+     12, 16² -> 128²): the PSNR in VAE_BF16_PSNR, which three faults planted
+     in the bf16 VAE must each leave (GroupNorm in bf16, the residual stream
+     in bf16, the conv weights left in fp32); (c) bf16 times as CUDA-graph
+     replays, each against its bound (convs, linears and attention counted
+     by hooks), with peak memory: decode at 16² and 32² (T 12), encode B 8
+     at 256²; (d) InceptionV3 and I3D (videogpt, styleganv) in fp32 with
+     TF32 off, BatchNorm statistics from the inputs: features card against
+     CPU (BACKBONE_TOL), then 32 frames and 8 clips of 128² at the fp32
+     bound; (e) `sim.app.build_simulator` on a full-width d512 STMAR
+     checkpoint and the VAE file, at phase 18's settings: 3 steps after a
+     warm-up, model p50 and with the 128² decode, a profile, 640 K1′ and 16
+     K6′ a step; (f) `evaluate_feature --vae_checkpoint --compute_fid
+     --compute_fvd` (styleganv) on a 2-layer d512 checkpoint, B 8, T 12:
+     fid and fvd against the library functions on the same decoded clips
+     (EVAL_TOL), with its launches.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -229,6 +250,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16
+FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores (TF32 off)
 FP32_TOL = 1e-5  # fp32 out and lse; bf16 lse (it is fp32 in both)
 # bf16 out, atol = rtol: about twice the worst reading on the card. Both
 # versions round probs and out to bf16, so a different exp or summation
@@ -604,8 +626,11 @@ def strided_dout(lead, H, D, dtype, seed):
     return torch.randn(*lead, 2, H, D, generator=g, device="cuda").to(dtype)[..., 0, :, :]
 
 
-def bound(n_bytes, n_ops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOP_PER_S * 1e3
+def bound(n_bytes, n_ops, flop_per_s=None):
+    """The least time in ms: bytes at HBM's rate, or operations at the peak
+    rate for their type (bf16 tensor cores unless told otherwise)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / (flop_per_s or BF16_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2632,16 +2657,27 @@ def synthetic_frames(n, seed, side=256):
 
 
 def conv_flops(model, call):
-    """2 x the multiply-adds of every conv `call` runs on `model` (by hooks)."""
+    """2 x the multiply-adds of every conv (2-D and 3-D) and linear layer
+    `call` runs on `model`, and of the SVD-VAE's two attention products (by
+    hooks)."""
     import torch
+
+    from hma_tpu_torch.tokenizer.svd_vae import AttnBlock
 
     total = [0]
 
     def hook(mod, inp, out):
-        total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * math.prod(mod.kernel_size)
+        if isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+        elif isinstance(mod, AttnBlock):  # q k^T and p v: 2 x (B, HW, HW, C)
+            B, C, H, W = inp[0].shape
+            total[0] += 4 * B * (H * W) ** 2 * C
+        else:
+            total[0] += (2 * out.numel() * (mod.in_channels // mod.groups)
+                         * math.prod(mod.kernel_size))
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.Conv2d)]
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear, AttnBlock))]
     try:
         with torch.no_grad():
             call()
@@ -2937,7 +2973,7 @@ def simulator_phase(records):
             "simulator card vs CPU")
     del sims, m_gpu, m_cpu
 
-    # the d512 STMAR simulator: latents out (the SVD-VAE is not ported)
+    # the d512 STMAR simulator, latents out (phase 19 runs it with pixels)
     torch.cuda.empty_cache()
     mcfg = mar_flagship_config(40)
     mar = STMAR(mcfg, dtype=torch.bfloat16, device="cuda",
@@ -2989,13 +3025,399 @@ def simulator_phase(records):
                 and counts["K1'"] == 3 * (H + 3) * small.num_layers, "the simulator app")
 
 
+# Phase 19: the SVD temporal VAE and the metric backbones. (a) fp32 on the
+# card against fp32 on the CPU (cuDNN's TF32 off): one clip of raw latents
+# (B 1, T 3, 8² -> 64² frames) through load_svd_decoder on each device, and
+# its frames encoded again, as max |dx| / max |x|. An H100 (700 W) reads
+# 3.245e-06 and 2.493e-06; the limit is about ten times that.
+VAE_CARD_TOL = 3e-5
+# (b) bf16 against fp32 on the card, the d512 card's grid (T 12, 16² ->
+# 128²): the PSNR of the bf16 frames against the fp32 ones, 10 log10(4 /
+# mse) (frames nominally in [-1, 1]). It must lie in the window, and three
+# faults planted in the bf16 VAE must each leave it. An H100 80GB HBM3 (700
+# W) reads: sound 45.97 dB; GroupNorm in bf16 44.81; the residual stream
+# left in bf16 after each AlphaBlender (torch's rule for a 0-dim fp32 alpha
+# would keep it bf16; JAX's promotion makes it fp32) 43.96; the conv weights
+# left in fp32 48.07. Each bound lies halfway between the sound reading and
+# the nearest fault's. The attention scores rounded to bf16 read 45.90: one
+# attention block over 256 positions moves the frames by 0.07 dB, which no
+# window can tell from the sound decoder.
+VAE_BF16_PSNR = (45.39, 47.02)
+# (d) the metric backbones' features, card against CPU, fp32 (TF32 off), as
+# max |df| / max |f|, with BatchNorm statistics from the compared inputs
+# (small variances amplify the two devices' summation orders): an H100
+# (700 W) reads 8.425e-05 (InceptionV3), 4.680e-05 and 1.715e-05 (I3D
+# videogpt, styleganv); the limit is about 3.5 times the largest
+BACKBONE_TOL = 3e-4
+
+
+def svd_vae_state(seed=0):
+    """The released SVD-VAE architecture (`SVDTemporalVAE()`) from `seed` on
+    the card in fp32, every tensor plus 0.05 N(0, 1) noise, so that the
+    GroupNorm scales, the zero biases and mix_factor take part: its state
+    dict, fp32 on the CPU."""
+    import torch
+
+    from hma_tpu_torch.tokenizer.svd_vae import SVDTemporalVAE
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    vae = SVDTemporalVAE(dtype=torch.float32, device="cuda", generator=g)
+    return {k: (v + 0.05 * torch.randn(v.shape, generator=g, device="cuda")).cpu()
+            for k, v in vae.state_dict().items()}
+
+
+def svd_vae(state, dtype, device="cuda"):
+    import torch
+
+    from hma_tpu_torch.tokenizer.svd_vae import SVDTemporalVAE
+
+    vae = SVDTemporalVAE(dtype=dtype, device=device,
+                         generator=torch.Generator(device).manual_seed(1))
+    vae.load_state_dict(state)
+    return vae.eval()
+
+
+def raw_latents(shape, seed):
+    """Raw (unscaled) latents as the decoders get them: N(0, 1) x SVD_SCALE
+    latents divided back and clamped to +/-25."""
+    from hma_tpu_torch.data.datasets import SVD_SCALE
+
+    z = np.random.default_rng(seed).normal(size=shape) / SVD_SCALE
+    return np.clip(z, -25.0, 25.0).astype(np.float32)
+
+
+def psnr_pm1(x, ref):
+    """PSNR of frames against reference frames, both nominally in [-1, 1]."""
+    mse = float(((x.float() - ref.float()) ** 2).mean())
+    return 10 * math.log10(4.0 / max(mse, 1e-30))
+
+
+def vae_phase_checks(state, path):
+    """Phase 19 (a)-(c): the VAE card against CPU in fp32, bf16 against fp32
+    with planted faults, and its bf16 times."""
+    import torch
+    from torch.nn import functional as F
+
+    from hma_tpu_torch.rollout.decode import load_svd_decoder
+    from hma_tpu_torch.tokenizer.magvit2 import GroupNorm
+    from hma_tpu_torch.tokenizer.svd_vae import SpatioTemporalResBlock
+
+    # (a) fp32, card against CPU
+    z = raw_latents((1, 3, 8, 8, 4), seed=0)
+    t0 = time.perf_counter()
+    dec_cpu = load_svd_decoder(str(path), dtype=torch.float32, device="cpu")(z)
+    dec_gpu = load_svd_decoder(str(path), dtype=torch.float32, device="cuda")(z)
+    vae32, cpu32 = svd_vae(state, torch.float32), svd_vae(state, torch.float32, "cpu")
+    frames = torch.from_numpy(np.clip(dec_cpu[0], -1, 1))
+    with torch.no_grad():
+        enc_cpu = cpu32.encode(frames)
+        enc_gpu = vae32.encode(frames.cuda()).cpu()
+    cpu_s = time.perf_counter() - t0
+    del cpu32
+    dec_err = float(np.abs(dec_gpu - dec_cpu).max() / np.abs(dec_cpu).max())
+    enc_err = float((enc_gpu - enc_cpu).abs().max() / enc_cpu.abs().max())
+    print(f"  (a) fp32 card vs CPU, raw latents (1, 3, 8, 8, 4): load_svd_decoder's 64² "
+          f"frames max|dx|/max|x| {dec_err:.3e} (max|x| {np.abs(dec_cpu).max():.3f}); encode "
+          f"of those 3 frames {enc_err:.3e} (max|z| {enc_cpu.abs().max().item():.3f}); tol "
+          f"{VAE_CARD_TOL} (CPU side {cpu_s:.1f} s)", flush=True)
+
+    # (b) bf16 against fp32 on the card, the d512 card's grid; planted faults
+    vae16 = svd_vae(state, torch.bfloat16)
+    z12 = torch.from_numpy(raw_latents((1, 12, 16, 16, 4), seed=1)).cuda()
+    with torch.no_grad():
+        x32 = vae32.decode(z12)
+
+    def drift():
+        with torch.no_grad():
+            return psnr_pm1(vae16.decode(z12), x32)
+
+    def gn_bf16(m, x):  # GroupNorm in bf16: no fp32 upcast
+        return F.group_norm(x.to(torch.bfloat16), m.num_groups, m.weight.to(torch.bfloat16),
+                            m.bias.to(torch.bfloat16), m.eps)
+
+    def mix_bf16(m, x, T):  # the residual stream left in bf16 after the blend
+        return m.__class__.forward(m, x, T).to(torch.bfloat16)
+
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d)
+    convs32 = dict(zip((m for m in vae16.modules() if isinstance(m, convs)),
+                       (m for m in vae32.modules() if isinstance(m, convs))))
+    faults = {
+        "GroupNorm in bf16": ([m for m in vae16.modules() if isinstance(m, GroupNorm)],
+                              gn_bf16),
+        "conv weights left in fp32": (list(convs32),
+                                      lambda m, x: convs32[m](x.float()).to(torch.bfloat16)),
+        "residual stream in bf16": ([m for m in vae16.modules()
+                                     if isinstance(m, SpatioTemporalResBlock)], mix_bf16)}
+    sound = drift()
+    readings = {}
+    for name, (mods, forward) in faults.items():
+        for m in mods:
+            m.forward = functools.partial(forward, m)
+        try:
+            readings[name] = drift()
+        finally:
+            for m in mods:
+                del m.forward
+    inside = lambda db: VAE_BF16_PSNR[0] <= db <= VAE_BF16_PSNR[1]  # noqa: E731
+    print(f"  (b) bf16 vs fp32 on the card, (1, 12, 16, 16, 4) -> 128² frames: PSNR "
+          f"{sound:.2f} dB (window {VAE_BF16_PSNR} dB; max|x| fp32 "
+          f"{x32.abs().max().item():.3f}); controls: "
+          + ", ".join(f"'{k}' {v:.2f} dB" for k, v in readings.items()), flush=True)
+    require(dec_err <= VAE_CARD_TOL and enc_err <= VAE_CARD_TOL, "SVD-VAE card vs CPU")
+    require(inside(sound), "SVD-VAE bf16 drift")
+    for name, db in readings.items():
+        require(not inside(db), f"the SVD-VAE's bf16 window misses the control '{name}'")
+    del vae32, x32, convs32
+
+    # (c) bf16 times, CUDA-graph replays (a decode is ~900 launches)
+    dec_w = sum(p.numel() * p.element_size() for p in vae16.decoder.parameters())
+    enc_w = sum(p.numel() * p.element_size() for p in vae16.encoder.parameters()) + sum(
+        p.numel() * p.element_size() for p in vae16.quant_conv.parameters())
+    z32 = torch.from_numpy(raw_latents((1, 12, 32, 32, 4), seed=2)).cuda()
+    img8 = torch.from_numpy(synthetic_frames(8, seed=3)).cuda().float().div(127.5).sub(1)
+    cases = (("decode, d512 grid: (1, 12, 16, 16, 4) -> 12 frames of 128²",
+              lambda: vae16.decode(z12), 12, dec_w, 12 * 16 * 16 * 4 * 4, 12 * 128 * 128 * 3 * 2),
+             ("decode, (1, 12, 32, 32, 4) -> 12 frames of 256²",
+              lambda: vae16.decode(z32), 12, dec_w, 12 * 32 * 32 * 4 * 4, 12 * 256 * 256 * 3 * 2),
+             ("encode, B 8 frames of 256²", lambda: vae16.encode(img8), 8, enc_w,
+              8 * 256 * 256 * 3 * 4, 8 * 32 * 32 * 4 * 2))
+    for label, call, frames_n, w_bytes, in_bytes, out_bytes in cases:
+        flops = conv_flops(vae16, call)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms = cuda_ms(call, iters=5, warmup=2, graph=True)
+        b_ms, b_by = bound(w_bytes + in_bytes + out_bytes, flops)
+        print(f"  (c) {label}, bf16: {ms}; {frames_n / float(ms) * 1e3:.1f} frames/s; bound "
+              f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP of convs, linears and "
+              f"attention); {float(ms) / b_ms:.1f} x bound; peak memory {peak:.2f} GiB",
+              flush=True)
+
+
+def backbone_checks():
+    """Phase 19 (d): InceptionV3 and both I3D variants, fp32 with TF32 off,
+    card against CPU on the same weights (seeded, BatchNorm statistics from
+    the inputs), then their throughput at the batches evaluate_feature gives
+    them (32 frames, 8 clips of 12 frames of 128², the d512 card's decode)."""
+    import torch
+
+    from hma_tpu_torch.metrics.fid import (
+        InceptionV3FID, backbone, fp32_convs, inception_inputs, make_inception_embed_fn)
+    from hma_tpu_torch.metrics.fvd import InceptionI3D, i3d_inputs, make_i3d_embed_fn
+
+    frames = synthetic_frames(32, seed=6, side=128)
+    clips = synthetic_frames(8 * 12, seed=7, side=128).reshape(8, 12, 128, 128, 3)
+    nets = {"InceptionV3": (InceptionV3FID, make_inception_embed_fn, {}, frames[:4],
+                            lambda x: inception_inputs(x), frames, "images")}
+    for backend, classes in (("videogpt", None), ("styleganv", 400)):
+        nets[f"I3D {backend}"] = (
+            functools.partial(InceptionI3D, classes), make_i3d_embed_fn, {"backend": backend},
+            clips[:2], functools.partial(i3d_inputs, resize=224, backend=backend), clips,
+            "clips")
+    for name, (make, embed_fn, kw, few, prep, batch, unit) in nets.items():
+        # BatchNorm statistics from `few` (with a fresh net's identity ones
+        # the global pool leaves features that barely differ between inputs)
+        model = backbone(make, None, "cuda", seed=0)
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
+                bn.momentum = None
+        model.train()
+        with torch.no_grad(), fp32_convs():
+            model(prep(torch.from_numpy(few).cuda()))
+        state = {k: v.cpu() for k, v in model.eval().state_dict().items()}
+        t0 = time.perf_counter()
+        f_cpu = embed_fn(state, device="cpu", **kw)(few)
+        cpu_s = time.perf_counter() - t0
+        f_gpu = embed_fn(state, device="cuda", **kw)(few)
+        err = float(np.abs(f_gpu - f_cpu).max() / np.abs(f_cpu).max())
+        spread = float(np.abs(f_cpu - f_cpu.mean(0)).max() / np.abs(f_cpu).max())
+        x = torch.from_numpy(batch).cuda()
+        flops = conv_flops(model, lambda: model(prep(x)))
+        with torch.no_grad(), fp32_convs():
+            ms = cuda_ms(lambda: model(prep(x)), iters=5, warmup=2, graph=True)
+        w_bytes = sum(p.numel() * 4 for p in model.parameters())
+        b_ms, b_by = bound(w_bytes + x.numel() + len(batch) * f_cpu.shape[1] * 4, flops,
+                           FP32_FLOP_PER_S)
+        print(f"  (d) {name}: features {f_cpu.shape[1]}-d, card vs CPU on {len(few)} {unit} "
+              f"max|df|/max|f| {err:.3e} (tol {BACKBONE_TOL}; the features differ between "
+              f"inputs by {spread:.3f} of max|f|; CPU side {cpu_s:.1f} s); "
+              f"{len(batch)} {unit} of 128², fp32: {ms}; {len(batch) / float(ms) * 1e3:.1f} "
+              f"{unit}/s; bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP at 67 "
+              f"TFLOP/s fp32); {float(ms) / b_ms:.1f} x bound", flush=True)
+        require(err <= BACKBONE_TOL and np.isfinite(f_gpu).all(), f"{name} card vs CPU")
+        del model, x
+
+
+def stmar_pixel_simulator(records, vae_path):
+    """Phase 19 (e): build_simulator on a full-width d512 STMAR checkpoint and
+    the VAE file, at phase 18's settings, 3 steps after a warm-up: step p50
+    with and without the decode, busy share, K1'/K6' launches a step (phase
+    18's)."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.sim.app import build_simulator
+    from hma_tpu_torch.utils.checkpoint import save_checkpoint
+
+    H, STEPS = 3, 3
+    mcfg = mar_flagship_config(40)
+    with tempfile.TemporaryDirectory() as tmp:
+        mar = STMAR(mcfg, dtype=torch.bfloat16, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+        seq = mar.seq_len + mcfg.action_token_size
+        save_checkpoint(tmp, "mar", mar.state_dict(), mcfg)
+        del mar
+        t0 = time.perf_counter()
+        sim = build_simulator(str(Path(tmp) / "mar"), str(vae_path), domain="domain_0")
+        load_s = time.perf_counter() - t0
+    # build_simulator keeps hma_tpu's defaults (2 MaskGIT steps at temperature
+    # 0); phase 18 runs the card's 16 at temperature 1, and so does this
+    sim.maskgit_steps, sim.temperature = mcfg.maskgit_steps, 1.0
+    lat, acts = mar_data(mcfg, 1)
+    moves = np.random.default_rng(0).normal(size=(STEPS + 1, mcfg.d_actions[0])).astype(
+        np.float32)
+    sim.set_initial_state(lat[0, :H].cpu().numpy(), acts[0, :H].cpu().numpy())
+    sim.step(moves[0])  # warm-up
+    sim._step_times.clear()
+    torch.cuda.synchronize()
+    reset_counts()
+    walls = []
+    for move in moves[1:]:
+        t0 = time.perf_counter()
+        px = sim.step(move)
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    stats = sim.measure_step_time()
+    with_decode = float(np.median(walls)) * 1e3
+    per_step = {k: v / STEPS for k, v in counts.items() if v}
+    print(f"  (e) build_simulator, d512 STMAR + SVD-VAE (bf16; loaded in {load_s:.1f} s), B 1, "
+          f"{STEPS} steps ({mcfg.maskgit_steps} MaskGIT x {mcfg.num_sampling_steps} denoise "
+          f"steps): model p50 {stats['p50_ms']:.2f} ms, with the 128² decode "
+          f"{with_decode:.2f} ms; frame {px.shape} {px.dtype}; launches a step {per_step}",
+          flush=True)
+    require(px.shape == (8 * mcfg.h, 8 * mcfg.h, 3) and px.dtype == np.uint8,
+            "STMAR simulator pixels")
+    forwards = H + mcfg.maskgit_steps + 1  # as phase 18's
+    require(counts["K1'"] == STEPS * forwards * mcfg.num_layers
+            and counts["K6'"] == STEPS * mcfg.maskgit_steps, f"STMAR pixel simulator {counts}")
+    set_launches(records, {("K1'", (1, seq, mcfg.num_heads, mcfg.d_model // mcfg.num_heads)):
+                           counts["K1'"],
+                           ("K6'", (100, 6, mcfg.vae_embed_dim * mcfg.patch_size**2,
+                                    mcfg.diffloss_w, mcfg.diffloss_d)): counts["K6'"]},
+                 add=True)
+    profile_run("STMAR simulator step with the decode", lambda: sim.step(moves[0]),
+                with_decode / 1e3)
+
+
+def pixel_eval_entry(records, vae_path):
+    """Phase 19 (f): evaluate_feature --vae_checkpoint --compute_fid
+    --compute_fvd (styleganv) on a 2-layer d512 checkpoint, B 8, T 12, 16
+    MaskGIT steps; fid and fvd against the library functions on the clips
+    the same windows decode to (EVAL_TOL)."""
+    import torch
+
+    from hma_tpu_torch.data.datasets import RawFeatureDataset
+    from hma_tpu_torch.evaluate_feature import FID_SEED, load_mar_model
+    from hma_tpu_torch.evaluate_feature import main as evaluate_feature_main
+    from hma_tpu_torch.metrics.fid import calculate_fid
+    from hma_tpu_torch.metrics.fvd import calculate_fvd
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.rollout.decode import decode_clips, load_svd_decoder
+    from hma_tpu_torch.rollout.mar import teacher_forced_latents
+    from hma_tpu_torch.utils.checkpoint import save_checkpoint
+
+    B = 8
+    cfg = mar_flagship_config(40)
+    cfg.num_layers = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model = STMAR(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+        write_latent_dataset(tmp / "lat", cfg, seed=5)
+        save_checkpoint(str(tmp), "mar", model.state_dict(), cfg)
+        del model
+        reset_counts()
+        t0 = time.perf_counter()
+        got = evaluate_feature_main([
+            "--checkpoint_dir", str(tmp / "mar"), "--val_data_dir", str(tmp / "lat"),
+            "--output_dir", str(tmp / "out"), "--batch_size", str(B), "--max_examples", str(B),
+            "--vae_checkpoint", str(vae_path), "--compute_fid", "--compute_fvd",
+            "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+        counts = read_counts()
+        model, cfg = load_mar_model(str(tmp / "mar"), "cuda", torch.bfloat16)
+        ds = RawFeatureDataset(tmp / "lat", window_size=cfg.T, use_actions=True)
+        items = [ds[i] for i in range(B)]
+    lat = torch.from_numpy(np.stack([it["input_ids"] for it in items]).reshape(
+        B, cfg.T, cfg.h, cfg.h, cfg.vae_embed_dim).astype(np.float32)).cuda()
+    acts = np.stack([it["action_ids"] for it in items]).astype(np.float32)
+    acts = torch.from_numpy(np.pad(acts, ((0, 0), (0, 0),
+                                          (0, cfg.max_d_action - acts.shape[-1])))).cuda()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pred = torch.cat([lat[:, :1], teacher_forced_latents(
+            model, lat, acts, 0, torch.Generator("cuda").manual_seed(FID_SEED))], 1)
+    decode = load_svd_decoder(str(vae_path))
+    pred_px = decode_clips(decode, pred.float().cpu().numpy())
+    gt_px = decode_clips(decode, lat.cpu().numpy())
+    want = {"fid": calculate_fid(pred_px.reshape(-1, *pred_px.shape[2:]),
+                                 gt_px.reshape(-1, *gt_px.shape[2:])),
+            "fvd": calculate_fvd(pred_px, gt_px, backend="styleganv")}
+    lib_s = time.perf_counter() - t0
+    d = rel_diff(got, want, ("fid", "fvd"))
+    frames = cfg.T - 1
+    print(f"  (f) evaluate_feature --vae_checkpoint --compute_fid --compute_fvd, B {B}, T "
+          f"{cfg.T} ({cli_s:.1f} s): fid {got['fid']!r}, fvd {got['fvd']!r}, fid_latent "
+          f"{got['fid_latent']:.4f}, fvd_latent {got['fvd_latent']:.4f}; library fid "
+          f"{want['fid']!r}, fvd {want['fvd']!r} ({lib_s:.1f} s); max rel diff {d:.3e} (tol "
+          f"{EVAL_TOL}); {pred_px.shape} uint8 clips; launches {counts}", flush=True)
+    require(d <= EVAL_TOL and all(math.isfinite(got[k]) for k in ("fid", "fvd")),
+            "evaluate_feature --vae_checkpoint")
+    # two teacher-forced passes (the metrics' and FID/FVD's), each a frame
+    # STEPS refinements, a cache fill and a ground-truth fill
+    require(counts["K6'"] == 2 * frames * cfg.maskgit_steps
+            and counts["K1'"] == 2 * frames * (cfg.maskgit_steps + 2) * cfg.num_layers,
+            f"evaluate_feature --vae_checkpoint launches {counts}")
+    # B 8 at 16 MaskGIT steps: phase 9's rollout shapes, K6' at N 48
+    set_launches(records, {
+        ("K1'", (B, model.seq_len + cfg.action_token_size, cfg.num_heads,
+                 cfg.d_model // cfg.num_heads)): counts["K1'"],
+        ("K6'", (100, 48, cfg.vae_embed_dim * cfg.patch_size**2, cfg.diffloss_w,
+                 cfg.diffloss_d)): counts["K6'"]}, add=True)
+
+
+def pixel_metrics_phase(records):
+    """Phase 19: the SVD temporal VAE at full width (card vs CPU, bf16 window
+    with planted faults, times), InceptionV3 and I3D (card vs CPU, times),
+    the d512 STMAR simulator with pixels through build_simulator, and
+    evaluate_feature --vae_checkpoint --compute_fid --compute_fvd."""
+    import torch
+
+    state = svd_vae_state()
+    n = sum(v.numel() for v in state.values())
+    n_dec = sum(v.numel() for k, v in state.items() if k.startswith("decoder."))
+    print(f"  SVDTemporalVAE(): {n / 1e6:.2f}M params (decoder {n_dec / 1e6:.2f}M)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "svd_vae.pt"
+        torch.save(state, path)
+        vae_phase_checks(state, path)
+        torch.cuda.empty_cache()
+        backbone_checks()
+        torch.cuda.empty_cache()
+        stmar_pixel_simulator(records, path)
+        torch.cuda.empty_cache()
+        pixel_eval_entry(records, path)
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 19)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 20)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -3040,7 +3462,10 @@ def main(argv=None) -> int:
              (17, "the MagVit2 codec; entry point: evaluate --tokenizer_ckpt "
                   "[--raw_image_data]", codec_phase),
              (18, "the simulator, d256 and d512 STMAR cards; entry point: build_simulator",
-              lambda: simulator_phase(records))]
+              lambda: simulator_phase(records)),
+             (19, "the SVD temporal VAE and the metric backbones; entry points: "
+                  "build_simulator (STMAR, pixels), evaluate_feature --vae_checkpoint",
+              lambda: pixel_metrics_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()

@@ -10,12 +10,16 @@ classifier-free guidance `--cfg`. Prints one JSON line: latent_mse over the
 predicted frames, latent_mse_per_frame, gen_time a predicted frame and
 num_examples; with `--compute_fid` / `--compute_fvd` also fid_latent and
 fvd_latent (FVD only for T >= 10), the Fréchet distances of the flattened
-latent frames and clips of a second pass over the same windows.
+latent frames and clips of a second pass over the same windows, and with
+`--vae_checkpoint` first fid and fvd over those windows decoded to uint8
+pixels by the SVD temporal VAE, clip by clip (InceptionV3 pool3 features of
+every frame; I3D embeddings of every clip, `--fvd_backend`, weights from
+`--i3d_weights` or drawn from a seed).
 
 One extra flag: `--device` (default: the CUDA card; raises if there is
-none). bf16 on the card, fp32 on the CPU; one device, one process. Pixel
-FID/FVD (`--vae_checkpoint`, `--i3d_weights`; ROADMAP.md Queue A, item 6),
-`--use_wandb` (item 11) and meshes above one device (item 10) raise.
+none). bf16 on the card, fp32 on the CPU, the metric backbones fp32 on
+both; one device, one process. `--use_wandb` (ROADMAP.md Queue A, item 11)
+and meshes above one device (item 10) raise.
 """
 
 from __future__ import annotations
@@ -23,13 +27,14 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from hma_tpu_torch.config import DiffusionGenieConfig
 from hma_tpu_torch.data.datasets import RawFeatureDataset
-from hma_tpu_torch.metrics.fid import fid_from_features
+from hma_tpu_torch.metrics.fid import calculate_fid, fid_from_features
 from hma_tpu_torch.metrics.fvd import calculate_fvd
 from hma_tpu_torch.metrics.token import AvgMetric
 from hma_tpu_torch.parallel import distributed as dist
@@ -39,6 +44,7 @@ from hma_tpu_torch.parallel.sharded_eval import (
     round_batch,
     setup_eval_mesh,
 )
+from hma_tpu_torch.rollout.decode import decode_clips, load_svd_decoder
 from hma_tpu_torch.rollout.mar import generate_latents, teacher_forced_latents
 from hma_tpu_torch.train.trainer import _pad_actions
 from hma_tpu_torch.utils.checkpoint import load_checkpoint
@@ -70,12 +76,14 @@ def parse_args(argv=None):
     p.add_argument("--compute_fid", action="store_true",
                    help="fid_latent over the flattened latent frames")
     p.add_argument("--vae_checkpoint", type=str, default=None,
-                   help="pixel FID/FVD: not ported yet, raises")
+                   help="diffusers AutoencoderKLTemporalDecoder state-dict file: adds "
+                        "pixel fid / fvd over the decoded windows")
     p.add_argument("--fvd_backend", type=str, default="styleganv",
                    choices=["styleganv", "videogpt"],
                    help="I3D variant of pixel FVD (with --vae_checkpoint only)")
     p.add_argument("--i3d_weights", type=str, default=None,
-                   help="pixel FVD backbone weights: not ported yet, raises")
+                   help="torch I3D state-dict file for --fvd_backend (default: "
+                        "weights drawn from a seed)")
     p.add_argument("--fsdp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
@@ -103,10 +111,10 @@ def flat_embed(v: np.ndarray) -> np.ndarray:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.vae_checkpoint or args.i3d_weights:
-        raise NotImplementedError(
-            "--vae_checkpoint / --i3d_weights: the SVD-VAE decoder and the I3D "
-            "backbone are not ported yet (ROADMAP.md Queue A, item 6)")
+    for flag, path in (("--vae_checkpoint", args.vae_checkpoint),
+                       ("--i3d_weights", args.i3d_weights)):
+        if path and not Path(path).is_file():  # before the evaluation, not after it
+            raise FileNotFoundError(f"{flag} {path}: no such file")
     if args.use_wandb:
         raise NotImplementedError(WANDB)
     dist.init_distributed()
@@ -180,6 +188,18 @@ def main(argv=None):
             preds.append(local_rows(predict(lat, actions, gen).float()))
             gts.append(local_rows(lat))
         pred, gt = np.concatenate(preds), np.concatenate(gts)
+        if args.vae_checkpoint:
+            decode = load_svd_decoder(args.vae_checkpoint, device=device)
+            pred_px, gt_px = decode_clips(decode, pred), decode_clips(decode, gt)
+            if args.compute_fid:
+                result["fid"] = calculate_fid(pred_px.reshape(-1, *pred_px.shape[2:]),
+                                              gt_px.reshape(-1, *gt_px.shape[2:]),
+                                              device=device)
+            if args.compute_fvd and T >= 10:
+                i3d = (torch.load(args.i3d_weights, map_location="cpu")
+                       if args.i3d_weights else None)
+                result["fvd"] = calculate_fvd(pred_px, gt_px, backend=args.fvd_backend,
+                                              i3d_state_dict=i3d, device=device)
         if args.compute_fid:
             result["fid_latent"] = fid_from_features(
                 flat_embed(pred.reshape(-1, *pred.shape[2:])),

@@ -6,10 +6,9 @@ actions.
 
     python -m hma_tpu_torch.sim.app --checkpoint_dir ckpt --tokenizer_ckpt magvit2.ckpt
 
-Both backbones load: STMaskGIT with the MagVit2 decoder, and STMAR, which
-returns latents until the SVD-VAE decoder is ported (ROADMAP.md Queue A,
-item 6b). One extra flag, `--device` (default: the CUDA card; raises if
-there is none).
+Both backbones load: STMaskGIT with the MagVit2 decoder, and STMAR with the
+SVD temporal VAE's decoder (latents out when no VAE checkpoint is given). One
+extra flag, `--device` (default: the CUDA card; raises if there is none).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from hma_tpu_torch import resolve_device
 from hma_tpu_torch.config import DiffusionGenieConfig, load_config
 from hma_tpu_torch.evaluate_feature import load_mar_model
 from hma_tpu_torch.generate import load_model
-from hma_tpu_torch.rollout.decode import make_token_decoder
+from hma_tpu_torch.rollout.decode import decode_clips, load_svd_decoder, make_token_decoder
 from hma_tpu_torch.sim.simulator import GenieSimulator
 from hma_tpu_torch.tokenizer.convert import load_magvit2
 from hma_tpu_torch.utils.checkpoint import CONFIG_FILE, resolve_checkpoint
@@ -43,26 +42,29 @@ def _is_continuous(checkpoint_dir: str) -> bool:
     return isinstance(config, DiffusionGenieConfig)
 
 
+def _make_latent_decoder(vae_checkpoint: str, dtype=None, device=None):
+    """The STMAR simulator's pixels: (N, h, w, C) latents x SVD_SCALE ->
+    (N, 8h, 8w, 3) uint8 through the SVD-VAE's temporal decoder, the N frames
+    as one clip, the RAW (unscaled) latents clamped to +/-25."""
+    decode = load_svd_decoder(vae_checkpoint, dtype, device)
+    return lambda lat_nhwc: decode_clips(decode, np.asarray(lat_nhwc, np.float32)[None])[0]
+
+
 def build_simulator(checkpoint_dir: str, tokenizer_ckpt, domain: str = "language_table",
                     prompt_horizon: int = 3, backbone: str = "auto",
                     device=None) -> GenieSimulator:
     """backbone: "auto" (from the checkpoint's card), "stmaskgit" or "stmar".
-    For stmaskgit, tokenizer_ckpt is the MagVit2 checkpoint; for stmar it is
-    the SVD-VAE's, which is not ported yet (give None for latent output).
-    On the CUDA card in bf16 unless `device` says otherwise (fp32 on the
-    CPU)."""
+    For stmaskgit, tokenizer_ckpt is the MagVit2 checkpoint; for stmar the
+    diffusers SVD-VAE state-dict file (None: latents out). On the CUDA card
+    in bf16 unless `device` says otherwise (fp32 on the CPU)."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     if backbone == "auto":
         backbone = "stmar" if _is_continuous(checkpoint_dir) else "stmaskgit"
     if backbone == "stmar":
-        if tokenizer_ckpt:
-            raise NotImplementedError(
-                f"{tokenizer_ckpt}: the SVD-VAE decoder of the STMAR backbone is "
-                "not ported yet (ROADMAP.md Queue A, item 6b); pass no tokenizer "
-                "checkpoint for latent output")
         model, config = load_mar_model(checkpoint_dir, device, dtype)
-        decode_kw = {}
+        decode_kw = {"decode_latents": (_make_latent_decoder(tokenizer_ckpt, dtype, device)
+                                        if tokenizer_ckpt else None)}
     else:
         model, config = load_model(checkpoint_dir, device, dtype)
         decode_kw = {"decode_tokens": make_token_decoder(

@@ -1,5 +1,5 @@
 """Pixel tokenizers (counterpart of hma_tpu/tokenizer): the MagVit2 codec
 with lookup-free quantization (`magvit2`, `lfq`), its checkpoint loader
-(`convert`) and the numpy image helpers (`image_ops`). The SVD-VAE, the
-tokenizer's training losses and the text encoder are not ported yet
-(ROADMAP.md Queue A, items 6b and 6e)."""
+(`convert`), the numpy image helpers (`image_ops`) and the SVD temporal VAE
+of the continuous family (`svd_vae`). The tokenizer's training losses and
+the text encoder are not ported yet (ROADMAP.md Queue A, item 6e)."""

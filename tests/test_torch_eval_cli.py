@@ -7,8 +7,9 @@ and its latent FID/FVD equal the port's own functions under the CLI's seed;
 `--use_feature` forwards every flag as hma_tpu's does; the pixel metrics
 of `--tokenizer_ckpt` (and `--raw_image_data`) equal hma_tpu.evaluate.main's
 on the same fp32 model and codec, and ΔPSNR the port's own perturbed
-rollouts; what is not ported raises, and so does a run without a card and
-without `--device`."""
+rollouts; what is not ported raises, a missing weights file raises before
+the evaluation runs, and so does a run without a card and without
+`--device`."""
 
 import functools
 import json
@@ -313,8 +314,8 @@ def test_use_feature_forwards_every_flag(monkeypatch):
     ("evaluate", ["--use_wandb"], NotImplementedError, "item 11"),
     ("evaluate", ["--fsdp", "2"], NotImplementedError, "item 10"),
     ("evaluate", ["--cfg", "2.0"], ValueError, "unknown arguments"),
-    ("evaluate_feature", ["--vae_checkpoint", "v.pt"], NotImplementedError, "item 6"),
-    ("evaluate_feature", ["--i3d_weights", "i.pt"], NotImplementedError, "item 6"),
+    ("evaluate_feature", ["--vae_checkpoint", "{tmp}/v.pt"], FileNotFoundError, "v.pt"),
+    ("evaluate_feature", ["--i3d_weights", "{tmp}/i.pt"], FileNotFoundError, "i.pt"),
     ("evaluate_feature", ["--use_wandb"], NotImplementedError, "item 11"),
     ("evaluate_feature", ["--tp", "2"], NotImplementedError, "item 10")])
 def test_unsupported_flags_raise(tmp_path, cli, extra, error, match):

@@ -45,7 +45,9 @@ def test_port_files_import_no_jax_or_hma_tpu():
             "hma_tpu_torch/tokenizer/image_ops.py", "hma_tpu_torch/rollout/decode.py",
             "hma_tpu_torch/data/encode_openx.py", "hma_tpu_torch/sim/simulator.py",
             "hma_tpu_torch/sim/main.py", "hma_tpu_torch/sim/viewer.py",
-            "hma_tpu_torch/sim/app.py"} <= names
+            "hma_tpu_torch/sim/app.py", "hma_tpu_torch/tokenizer/svd_vae.py",
+            "hma_tpu_torch/metrics/fid.py", "hma_tpu_torch/metrics/fvd.py",
+            "hma_tpu_torch/evaluate_feature.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -55,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, hma_tpu_torch, hma_tpu_torch.generate, "
             "hma_tpu_torch.convert, hma_tpu_torch.train_multi, "
             "hma_tpu_torch.rollout.mar, hma_tpu_torch.evaluate, hma_tpu_torch.sim.app, "
-            "hma_tpu_torch.sim.main, hma_tpu_torch.sim.viewer; "
+            "hma_tpu_torch.sim.main, hma_tpu_torch.sim.viewer, "
+            "hma_tpu_torch.tokenizer.svd_vae, hma_tpu_torch.metrics.fid, "
+            "hma_tpu_torch.metrics.fvd, hma_tpu_torch.evaluate_feature; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,7 +1,10 @@
 """The port's evaluation metrics against hma_tpu's on the same numpy inputs:
 token loss to 1e-5 relative and accuracy equal, PSNR and SSIM to 1e-5
-relative, the Fréchet distances of FID and FVD to 1e-6 relative; the
-backbones that are not ported raise."""
+relative, the Fréchet distances of FID and FVD to 1e-6 relative (the
+exact low-rank form too, where both sets have fewer samples than
+dimensions); without an
+embed_fn and without a card, FID and FVD raise (their backbones run on the
+card; tests/test_torch_fid_fvd.py holds them to hma_tpu's)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,10 +84,26 @@ def test_frechet_distances_match_jax():
                                jax_fid.calculate_fid(a, b, embed_fn=lambda x: x), rtol=1e-6)
 
 
-def test_backbones_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fid.calculate_fid(np.zeros((2, 8, 8, 3)), np.zeros((2, 8, 8, 3)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fvd.calculate_fvd(np.zeros((2, 10, 4)), np.zeros((2, 10, 4)), None)
+@pytest.mark.parametrize("n,m,dim", [(8, 8, 256), (12, 5, 300), (299, 7, 300)])
+def test_low_rank_frechet_distance_matches_jax(n, m, dim):
+    """Fewer samples than dimensions on both sides: the exact low-rank form
+    against hma_tpu's scipy sqrtm of the singular covariances (and the last
+    case, n >= dim, through sqrtm on both sides)."""
+    rng = np.random.default_rng(n)
+    a, b = rng.normal(size=(n, dim)), 0.3 + 1.2 * rng.normal(size=(m, dim))
+    np.testing.assert_allclose(fid.fid_from_features(a, b),
+                               jax_fid.fid_from_features(a, b), rtol=1e-6)
+
+
+def test_backbones_that_are_not_ported_raise(monkeypatch):
+    """Without an embed_fn the metrics build their backbone on the card: with
+    no card and no device they raise rather than carry on on the CPU. FVD
+    refuses clips of fewer than 10 frames before it builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fid.calculate_fid(np.zeros((2, 8, 8, 3), np.uint8), np.zeros((2, 8, 8, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fvd.calculate_fvd(np.zeros((2, 10, 8, 8, 3), np.uint8),
+                          np.zeros((2, 10, 8, 8, 3), np.uint8))
     with pytest.raises(ValueError, match=">= 10 frames"):
         fvd.calculate_fvd(np.zeros((2, 9, 4)), np.zeros((2, 9, 4)), lambda v: v)

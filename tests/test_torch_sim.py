@@ -201,7 +201,7 @@ def test_build_simulator_loads_both_families(tmp_path):
     mar = STMAR(mcfg, dtype=torch.float32, device="cpu",
                 generator=torch.Generator().manual_seed(2))
     save_checkpoint(str(tmp_path), "mar", mar.state_dict(), mcfg)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(FileNotFoundError, match="vae.pt"):  # the SVD-VAE's file
         build_simulator(str(tmp_path / "mar"), str(tmp_path / "vae.pt"), device="cpu")
     sim = build_simulator(str(tmp_path / "mar"), None, device="cpu")
     assert sim.backbone == "stmar" and sim._decode is None
@@ -210,11 +210,11 @@ def test_build_simulator_loads_both_families(tmp_path):
 
 
 def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
-    """`build_simulator`, `make_token_decoder` and `make_magvit_encoder` run
-    on the card unless given a device: without one they raise, they do not
-    carry on on the CPU."""
+    """`build_simulator`, `make_token_decoder`, `make_magvit_encoder` and
+    `load_svd_decoder` run on the card unless given a device: without one
+    they raise, they do not carry on on the CPU."""
     from hma_tpu_torch.data.encode_openx import make_magvit_encoder
-    from hma_tpu_torch.rollout.decode import make_token_decoder
+    from hma_tpu_torch.rollout.decode import load_svd_decoder, make_token_decoder
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     vq_cfg = VQConfig(base_channels=32, ch_mult=(1, 2), num_res_blocks=1)
@@ -224,3 +224,5 @@ def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
             make(state, vq_cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_simulator(str(tmp_path / "ckpt"), str(tmp_path / "tok.ckpt"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_svd_decoder(str(tmp_path / "vae.pt"))

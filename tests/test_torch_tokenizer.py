@@ -222,8 +222,8 @@ def test_load_magvit2_refuses(ckpt, tmp_path):
     torch.save({k: v for k, v in state.items() if k != "decoder.conv_out.bias"}, bad)
     with pytest.raises(ValueError, match="decoder.conv_out.bias"):
         load_magvit2(str(bad), use_ema=False)  # and the default config does not fit
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        load_svd_decoder("vae.pt")
+    with pytest.raises(FileNotFoundError, match="vae.pt"):
+        load_svd_decoder(str(tmp_path / "vae.pt"), device="cpu")
 
 
 def test_feature_decoder_clamps_raw_latents():
