@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all nineteen)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -228,7 +228,33 @@ Phases, each failing the run on any error:
      K6′ a step; (f) `evaluate_feature --vae_checkpoint --compute_fid
      --compute_fvd` (styleganv) on a 2-layer d512 checkpoint, B 8, T 12:
      fid and fvd against the library functions on the same decoded clips
-     (EVAL_TOL), with its launches.
+     (EVAL_TOL), with its launches;
+ 20. LPIPS and the tokenizer's GAN training: (a) LPIPS VGG and AlexNet from
+     seeded state-dict files in the lpips layout (AlexNet's heads under
+     `lins.`), fp32 card (TF32 off) against the CPU on 256² pairs
+     (LPIPS_CARD_TOL), d(x, x) = 0, then B 8 at 256² against the fp32 bound
+     (convs counted by hooks); (b) one GAN step of the full-width codec
+     (`VQConfig()`, 65.49M) with the VGG LPIPS, fp32, card against CPU on a
+     64² batch at gen_loss_weight 0.1 and None, and without LPIPS and the
+     entropy term: logs, LeCam EMAs and running statistics (GAN_LOG_TOL),
+     Adam moments (GAN_MOMENT_TOL; GAN_PLAIN_MOMENT_TOL in the last case),
+     parameters and EMA where the moment fixes the update's sign
+     (GAN_MASKED_PARAM_TOL); then bf16, GAN_BF16_STEPS steps at B 8 on one 256²
+     batch, where reconstruct_loss must fall: step ms, images/s, peak
+     memory, x bound, a profile; (c) `python -m hma_tpu_torch.train_tokenizer`
+     (defaults: VQConfig(), B 8) on a synthetic 256² raw-image set for 4
+     steps with the VGG LPIPS: its first step's logs against the library's
+     step on the same batch (EVAL_TOL), `load_magvit2` returns its newest
+     EMA, and `evaluate --tokenizer_ckpt` (B 8) runs on it; (d) train_multi
+     on the 2-layer d256 card, B 8, with `--tokenizer_checkpoint` (that
+     directory) and `--lpips_weights` (AlexNet): vis/rollout_psnr and
+     vis/rollout_lpips against the library functions on the rollout's
+     tokens (EVAL_TOL), every launch (training, eval, rollout) in a phase-3
+     record; (e) `generate` (B 8) on a 2-layer d256 and a 2-layer d512 STMAR
+     checkpoint (2 prompt and 2 generated frames), then `visualize` on each
+     output (the trained tokenizer; a full-width SVD-VAE file): its frames
+     equal the library's decode bit for bit, and its GIF and PNG files where
+     Pillow imports.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -3411,13 +3437,519 @@ def pixel_metrics_phase(records):
         pixel_eval_entry(records, path)
 
 
+# Phase 20: LPIPS, the tokenizer's GAN training, train_tokenizer, the
+# trainer's pixel metrics and visualize. (a) LPIPS distances, fp32 card
+# (TF32 off) against the CPU on 256² pairs, relative to the largest: an
+# H100 80GB HBM3 (700 W) reads 0 (VGG) and 1.366e-07 (AlexNet).
+LPIPS_CARD_TOL = 1e-6
+# (b) one fp32 GAN step of the full-width codec, card against CPU on a 64²
+# batch, in three cases: the VGG LPIPS at gen_loss_weight 0.1 and None, and
+# neither LPIPS nor the entropy term (codebook_weight 0). The logs, the
+# LeCam EMAs and the discriminator's running statistics relative to the
+# value (to each tensor's largest): the H100 reads up to 2.382e-05
+# (d_weight, the adaptive weight's ratio of gradient norms), the rest <=
+# 2.4e-6. The Adam moments (the gradients' sums) relative to each tensor's
+# largest: the entropy term's per-bit sigmoid(4 z / 0.01) multiplies the
+# two devices' rounding differences in the latents by up to 100, so the
+# codec's gradients agree less closely than its forward does: the H100
+# reads up to 1.847e-03 (the discriminator's 5.9e-6); without the entropy
+# term up to 1.464e-05, held to GAN_PLAIN_MOMENT_TOL. The parameters and
+# their EMA: Adam's first step moves an element by lr times the sign of its
+# gradient whatever the gradient's size, so where a gradient is ~0 the two
+# devices may move it 2 lr apart (the H100 reads 2.000 lr with the entropy
+# term, 1.178 lr without it, in the discriminator), and a limit over all
+# elements says nothing. So the parameters are held where the first moment
+# exceeds twice the case's moment limit times its tensor's largest (there
+# the moment limit fixes the gradient's sign, and the update is lr times
+# it) to GAN_MASKED_PARAM_TOL lr: the H100 reads 5.960e-04 and 1.192e-03
+# lr with the entropy term, 1.192e-03 lr without (the parameters'
+# rounding). That holds 0.861 and 0.857 of the elements with the entropy
+# term, 0.997 without; fewer than GAN_MIN_SHARE_HELD fails.
+GAN_LOG_TOL = 1e-4
+GAN_MOMENT_TOL = 5e-3
+GAN_PLAIN_MOMENT_TOL = 1e-4
+GAN_MASKED_PARAM_TOL = 0.02
+GAN_MIN_SHARE_HELD = 0.8
+GAN_LR = 1e-4
+GAN_BF16_STEPS = 30
+
+
+def lpips_file(path, net, seed):
+    """An LPIPS state-dict file in the lpips package's layout: the trunk from
+    `seed` (conv weights N(0, 1 / fan_in), biases 0), the heads drawn U(0, 1)
+    so that they take part; AlexNet's heads under the newer `lins.` keys.
+    Returns the state dict."""
+    import torch
+
+    from hma_tpu_torch.metrics.lpips import LPIPS
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {(k.replace("lin", "lins.", 1) if net == "alex" and k.startswith("lin") else k):
+          (torch.rand(v.shape, generator=g) if k.startswith("lin") else v)
+          for k, v in LPIPS(net, device="cpu", generator=g).state_dict().items()}
+    torch.save(sd, path)
+    return sd
+
+
+def pm1_frames(n, seed, side=256, device="cuda"):
+    """synthetic_frames as (n, 3, side, side) fp32 in [-1, 1] on `device`."""
+    import torch
+
+    x = torch.from_numpy(synthetic_frames(n, seed=seed, side=side)).float() / 127.5 - 1.0
+    return x.permute(0, 3, 1, 2).contiguous().to(device)
+
+
+def lpips_checks(tmp):
+    """Phase 20 (a): LPIPS VGG and AlexNet from state-dict files, fp32 card
+    (TF32 off) against the CPU on B 2 pairs of 256² frames, d(x, x) = 0,
+    then B 8 at 256² against the fp32 bound (convs counted by hooks)."""
+    import torch
+
+    from hma_tpu_torch.metrics.lpips import LPIPS, load_lpips_torch_weights
+
+    x, y = pm1_frames(8, seed=8), pm1_frames(8, seed=9)
+    for net, seed in (("vgg", 0), ("alex", 1)):
+        sd = lpips_file(tmp / f"lpips_{net}.pt", net, seed)
+        cpu = load_lpips_torch_weights(LPIPS(net, device="cpu"), sd)
+        card = load_lpips_torch_weights(LPIPS(net, device="cuda"), sd)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            d_cpu = cpu(x[:2].cpu(), y[:2].cpu())
+            cpu_s = time.perf_counter() - t0
+            d_gpu = card(x[:2], y[:2]).cpu()
+            same = card(x[:2], x[:2]).cpu()
+        err = ((d_gpu - d_cpu).abs().max() / d_cpu.abs().max()).item()
+        flops = conv_flops(card, lambda: card(x, y))
+        with torch.no_grad():  # as phase 19's backbones: graph replays
+            ms = cuda_ms(lambda: card(x, y), iters=5, warmup=2, graph=True)
+        w_bytes = 4 * sum(p.numel() for p in card.parameters())
+        b_ms, b_by = bound(w_bytes + 4 * (x.numel() + y.numel() + 8), flops, FP32_FLOP_PER_S)
+        print(f"  (a) LPIPS {net}: card vs CPU, B 2 at 256²: d {d_cpu.tolist()}, max|dd|/max|d| "
+              f"{err:.3e} (tol {LPIPS_CARD_TOL}; CPU side {cpu_s:.1f} s); d(x, x) "
+              f"{same.tolist()}; B 8 at 256², fp32: {ms}; {8 / float(ms) * 1e3:.1f} pairs/s; "
+              f"bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP at 67 TFLOP/s fp32); "
+              f"{float(ms) / b_ms:.1f} x bound", flush=True)
+        require(err <= LPIPS_CARD_TOL and bool((same == 0).all()), f"LPIPS {net} card vs CPU")
+
+
+def gan_states(cfg, devices, lr, dtype=None):
+    """init_vq_train_state on each device, all from the first's weights."""
+    import torch
+
+    from hma_tpu_torch.tokenizer.train_vq import init_vq_train_state
+
+    states = [init_vq_train_state(cfg, 0, lr=lr, warmup_steps=1, dtype=dtype, device=d)
+              for d in devices]
+    for st in states[1:]:
+        st.gen.load_state_dict(states[0].gen.state_dict())
+        st.disc.load_state_dict(states[0].disc.state_dict())
+        st.ema = {n: p.detach().clone() for n, p in st.gen.named_parameters()}
+    return states
+
+
+def gan_view(st, logs):
+    """A GAN state and its step's logs as CPU fp32 tensors."""
+    return {"logs": {k: v.float().cpu() for k, v in logs.items()},
+            "gen": {k: v.cpu() for k, v in st.gen.state_dict().items()},
+            "ema": {k: v.cpu() for k, v in st.ema.items()},
+            "disc": {k: v.float().cpu() for k, v in st.disc.state_dict().items()
+                     if "num_batches" not in k},
+            "gen_m": {k: v.cpu() for k, v in st.gen_opt.m.items()},
+            "gen_v": {k: v.cpu() for k, v in st.gen_opt.v.items()},
+            "disc_m": {k: v.cpu() for k, v in st.disc_opt.m.items()},
+            "lecam": {"real": st.lecam.real_ema.cpu(), "fake": st.lecam.fake_ema.cpu()}}
+
+
+def gan_compare(got, want, lr, moment_tol):
+    """Largest relative differences {group: (err, key)} of two gan_view()s;
+    the largest parameter difference in units of lr over the elements whose
+    first moment exceeds 2 moment_tol of its tensor's largest, and the
+    share of elements that are."""
+    out = {}
+    for group in ("logs", "lecam", "gen_m", "gen_v", "disc_m", "disc"):
+        errs = [(((got[group][k] - v).abs().max() / v.abs().max().clamp(min=1e-12)).item(), k)
+                for k, v in want[group].items() if group != "disc" or "running" in k]
+        out[group] = max(errs)
+    masked, n_held, n_all = [], 0, 0
+    for g, mg in (("gen", "gen_m"), ("ema", "gen_m"), ("disc", "disc_m")):
+        for k, v in want[g].items():
+            if "running" in k:
+                continue
+            m = want[mg][k].abs()
+            sel = m > 2 * moment_tol * m.max()
+            d = (got[g][k] - v).abs()[sel] / lr
+            masked.append((d.max().item() if d.numel() else 0.0, f"{g} {k}"))
+            n_held, n_all = n_held + d.numel(), n_all + v.numel()
+    out["params where held / lr"] = max(masked)
+    out["share held"] = (n_held / n_all, "gen, ema, disc")
+    return out
+
+
+def gan_step_flops(st, lpips, images):
+    """(bf16, fp32) operations of one GAN step at the default fixed GAN
+    weight, from each net's forward convs counted by hooks: the codec's
+    forward and its backward (3x, bf16), LPIPS on the input and on the
+    reconstruction and back through the latter (3 forwards, fp32), the
+    discriminator on the reconstruction and back to it (2x), then on the
+    real and fake batches with their backwards (6x), fp32."""
+    import torch
+
+    codec = conv_flops(st.gen, lambda: st.gen(images))
+    lp = conv_flops(lpips, lambda: lpips(images, images)) / 2
+    disc = conv_flops(st.disc, lambda: st.disc(images))
+    return 3 * codec, 3 * lp + 8 * disc
+
+
+def gan_step_checks(vgg_path):
+    """Phase 20 (b): the GAN step at full width (VQConfig(), 256², B 8, the
+    VGG LPIPS): one fp32 step card against CPU on a 64² batch at both GAN
+    weights, and without LPIPS and the entropy term; then bf16 on the card,
+    GAN_BF16_STEPS steps on a fixed batch where reconstruct_loss must fall,
+    timed."""
+    import dataclasses
+
+    import torch
+
+    from hma_tpu_torch.metrics.lpips import LPIPS, load_lpips_torch_weights
+    from hma_tpu_torch.tokenizer.magvit2 import VQConfig
+    from hma_tpu_torch.tokenizer.train_vq import make_vq_train_step
+
+    sd = torch.load(vgg_path, weights_only=True)
+    lpips = {d: load_lpips_torch_weights(LPIPS("vgg", device=d), sd) for d in ("cpu", "cuda")}
+    x64 = pm1_frames(2, seed=10, side=64, device="cpu")
+    for glw, with_lpips, codebook_weight, moment_tol in (
+            (0.1, True, 0.1, GAN_MOMENT_TOL), (None, True, 0.1, GAN_MOMENT_TOL),
+            (0.1, False, 0.0, GAN_PLAIN_MOMENT_TOL)):
+        cfg = dataclasses.replace(VQConfig(), gen_loss_weight=glw,
+                                  codebook_weight=codebook_weight)
+        cpu, card = gan_states(cfg, ("cpu", "cuda"), GAN_LR, dtype=torch.float32)
+        t0 = time.perf_counter()
+        want = gan_view(cpu, make_vq_train_step(
+            cpu, cfg, lpips["cpu"] if with_lpips else None)(x64))
+        cpu_s = time.perf_counter() - t0
+        got = gan_view(card, make_vq_train_step(
+            card, cfg, lpips["cuda"] if with_lpips else None)(x64.cuda()))
+        errs = gan_compare(got, want, GAN_LR, moment_tol)
+        print(f"  (b) fp32 GAN step, card vs CPU, B 2 at 64², gen_loss_weight {glw}, "
+              f"{'VGG LPIPS' if with_lpips else 'no LPIPS'}, codebook_weight {codebook_weight}: "
+              f"d_weight {want['logs']['d_weight'].item():.4f}, total "
+              f"{want['logs']['total_loss'].item():.4f}; "
+              + "; ".join(f"{k} {e:.3e} ({n})" for k, (e, n) in errs.items())
+              + f" (tols: logs, LeCam, running stats {GAN_LOG_TOL}; moments {moment_tol}; "
+              f"params where |m| > 2 x {moment_tol} of the tensor's largest "
+              f"{GAN_MASKED_PARAM_TOL} lr, on at least {GAN_MIN_SHARE_HELD} of them; CPU side "
+              f"{cpu_s:.1f} s)", flush=True)
+        require(all(errs[g][0] <= GAN_LOG_TOL for g in ("logs", "lecam", "disc"))
+                and all(errs[g][0] <= moment_tol for g in ("gen_m", "gen_v", "disc_m"))
+                and errs["params where held / lr"][0] <= GAN_MASKED_PARAM_TOL
+                and errs["share held"][0] >= GAN_MIN_SHARE_HELD,
+                f"GAN step card vs CPU, weight {glw}, LPIPS {with_lpips}")
+        del cpu, card, got, want
+
+    # bf16 on the card: GAN_BF16_STEPS steps on one batch, the first a warm-up
+    cfg = VQConfig()
+    (st,) = gan_states(cfg, ("cuda",), GAN_LR)
+    n_params = sum(p.numel() for p in st.gen.parameters())
+    step = make_vq_train_step(st, cfg, lpips["cuda"])
+    x = pm1_frames(8, seed=11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recs, secs = [], []
+    for _ in range(GAN_BF16_STEPS):
+        t0 = time.perf_counter()
+        logs = step(x)
+        recs.append(float(logs["reconstruct_loss"]))  # waits for the step
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(secs[1:]))
+    f16, f32 = gan_step_flops(st, lpips["cuda"], x)
+    ops_ms = (f16 / BF16_FLOP_PER_S + f32 / FP32_FLOP_PER_S) * 1e3
+    # Adam (p, m, v read and written, the gradient read) and the EMA (read
+    # and written), fp32, for codec and discriminator
+    n_all = n_params + sum(p.numel() for p in st.disc.parameters())
+    bytes_ms = 4 * 9 * n_all / HBM_BYTES_PER_S * 1e3
+    b_ms = max(ops_ms, bytes_ms)
+    first, last = np.mean(recs[:5]), np.mean(recs[-5:])
+    print(f"  (b) bf16 GAN step, VQConfig() ({n_params / 1e6:.2f}M), B 8 at 256², VGG LPIPS, "
+          f"gen_loss_weight 0.1, lr {GAN_LR}: reconstruct_loss {recs[0]:.4f} -> {recs[-1]:.4f} "
+          f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); median step "
+          f"{med * 1e3:.2f} ms over {len(secs) - 1} steps after the first ({secs[0]:.2f} s), "
+          f"{8 / med:.1f} images/s; peak memory {peak:.2f} GiB; bound {b_ms:.2f} ms "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: {f16 / 1e12:.2f} TFLOP bf16 "
+          f"at 989, {f32 / 1e12:.2f} TFLOP fp32 at 67 TFLOP/s); {med * 1e3 / b_ms:.1f} x bound",
+          flush=True)
+    require(all(math.isfinite(r) for r in recs) and last < first,
+            "bf16 GAN steps: reconstruct_loss does not fall")
+    profile_run("bf16 GAN step", lambda: step(x), med)
+
+
+def tokenizer_cli_checks(tmp, vgg_path, records):
+    """Phase 20 (c): `python -m hma_tpu_torch.train_tokenizer` (VQConfig(),
+    B 8, 256²) for 4 steps with the VGG LPIPS and a checkpoint every 2; its
+    first step's logs against the library's step on the same batch;
+    load_magvit2 reads the EMA back; `evaluate --tokenizer_ckpt` on it."""
+    import os
+
+    import torch
+
+    from hma_tpu_torch.data.datasets import RawImageDataset, write_token_dataset
+    from hma_tpu_torch.evaluate import main as evaluate_main
+    from hma_tpu_torch.metrics.lpips import LPIPS, load_lpips_torch_weights
+    from hma_tpu_torch.tokenizer.convert import TOKENIZER_FILE, load_magvit2
+    from hma_tpu_torch.tokenizer.magvit2 import VQConfig
+    from hma_tpu_torch.tokenizer.train_vq import init_vq_train_state, make_vq_train_step
+
+    write_token_dataset(tmp / "raw", synthetic_frames(16, seed=12), np.zeros(16), None,
+                        {"name": "raw"})
+    out = tmp / "tok"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hma_tpu_torch.train_tokenizer", "--train_data_dir",
+         str(tmp / "raw"), "--output_dir", str(out), "--max_train_steps", "4",
+         "--checkpointing_steps", "2", "--log_every", "1", "--warmup_steps", "1",
+         "--lpips_weights", str(vgg_path), "--seed", "3", "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"python -m hma_tpu_torch.train_tokenizer: {proc.stderr}")
+    logs = [json.loads(l) for l in (out / "metrics.jsonl").read_text().splitlines()]
+    logs = [l for l in logs if "tok/total_loss" in l]
+    tags = sorted(p.name for p in out.iterdir() if p.is_dir())
+
+    # the library's first step from the same seed on the same draw
+    ds = RawImageDataset(tmp / "raw", window_size=1, compute_stride_from_freq_table=False,
+                         filter_interrupts=False)
+    idx = np.random.default_rng(3).integers(0, len(ds), 8)
+    images = (torch.from_numpy(np.stack([ds[int(i)]["images"][0] for i in idx])).cuda()
+              / 127.5 - 1.0).permute(0, 3, 1, 2)
+    st = init_vq_train_state(VQConfig(), 3, device="cuda")
+    lpips = load_lpips_torch_weights(LPIPS("vgg", device="cuda"),
+                                     torch.load(vgg_path, weights_only=True))
+    lib = {f"tok/{k}": float(v) for k, v in make_vq_train_step(st, VQConfig(), lpips)(
+        images).items()}
+    del st
+    d = rel_diff(logs[0], lib, list(lib))
+    state, cfg = load_magvit2(str(out))
+    saved = torch.load(out / "step_4" / TOKENIZER_FILE, weights_only=True)
+    ema_ok = all(torch.equal(state[k], saved["ema"][k]) for k in state)
+    losses = ", ".join(f"{line['tok/total_loss']:.4f}" for line in logs)
+    print(f"  (c) python -m hma_tpu_torch.train_tokenizer ({cli_s:.1f} s): tags {tags}, "
+          f"{len(logs)} logged steps, total_loss {losses}; step 1 against the "
+          f"library's step on the same batch: max rel diff {d:.3e} (tol {EVAL_TOL}); "
+          f"load_magvit2 returns step_4's EMA: {ema_ok}", flush=True)
+    require(tags == ["final_checkpt", "step_2", "step_4"] and len(logs) == 4
+            and d <= EVAL_TOL and ema_ok and cfg == VQConfig(), "train_tokenizer CLI")
+
+    B = 8
+    cfg = write_discrete_checkpoint(tmp)
+    reset_counts()
+    got = evaluate_main(["--checkpoint_dir", str(tmp / "ckpt"), "--val_data_dir",
+                         str(tmp / "data"), "--output_dir", str(tmp / "eval"),
+                         "--batch_size", str(B), "--max_examples", str(B),
+                         "--tokenizer_ckpt", str(out), "--num_action_trials", "0",
+                         "--device", "cuda"])
+    counts = read_counts()
+    print(f"  (c) evaluate --tokenizer_ckpt <train_tokenizer dir>, B {B}: {json.dumps(got)}; "
+          f"launches {counts}", flush=True)
+    require(all(math.isfinite(got[k]) for k in ("psnr", "ssim", "dec_time")),
+            "evaluate --tokenizer_ckpt on the trained tokenizer")
+    k1 = cfg.num_layers * (cfg.T - 1) * 3  # 3 cached forwards a frame
+    require(counts["K1'"] == k1 and counts["K3'"] == 0, f"evaluate launches {counts}")
+    set_launches(records, {("K1'", (B, 320, 8, 32)): k1}, add=True)
+    return out
+
+
+def trainer_vis_checks(tmp, tok_dir, alex_path, records):
+    """Phase 20 (d): train_multi on the 2-layer d256 card, B 8, with
+    --tokenizer_checkpoint (the train_tokenizer directory) and
+    --lpips_weights (AlexNet), the rollout eval at step 1: vis/rollout_psnr
+    and vis/rollout_lpips against the library functions on the tokens that
+    rollout gave; every launch in a phase-3 record."""
+    import torch
+
+    from hma_tpu_torch.metrics.image import batch_psnr
+    from hma_tpu_torch.metrics.lpips import make_lpips_fn
+    from hma_tpu_torch.rollout.decode import make_token_decoder
+    from hma_tpu_torch.tokenizer.convert import load_magvit2
+    from hma_tpu_torch.train import trainer
+    from hma_tpu_torch.train_multi import main as train_main
+
+    cfg = flagship_config(1)
+    cfg.num_layers = 2
+    B, L = 8, cfg.num_layers
+    write_dataset(tmp / "domain_0_magvit_max1000000_train", cfg, seed=13)
+    cfg.save_pretrained(str(tmp / "card.json"))
+    (tmp / "split.yaml").write_text("domains: domain_0\n")
+    seen, parts = [], {}
+    generate, run_eval = trainer.generate_tokens, trainer.run_eval
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            before = read_counts()
+            out = fn(*a, **kw)
+            after = read_counts()
+            parts[name] = {k: parts.get(name, {}).get(k, 0) + after[k] - before[k]
+                           for k in after}
+            if name == "rollout":
+                seen.append((a[1].clone(), out.clone()))
+            return out
+        return call
+
+    trainer.generate_tokens = counted("rollout", generate)
+    trainer.run_eval = counted("eval", run_eval)
+    try:
+        reset_counts()
+        train_main(["--genie_config", str(tmp / "card.json"), "--output_dir", str(tmp / "run"),
+                    "--train_split", str(tmp / "split.yaml"), "--data_root", str(tmp),
+                    "--window_size", str(cfg.T), "--per_device_train_batch_size", str(B),
+                    "--per_device_eval_batch_size", str(B), "--max_train_steps", "2",
+                    "--overfit_first_batch", "--vis_every_n_steps", "1",
+                    "--eval_every_n_steps", "2", "--max_eval_steps", "1", "--log_every", "1",
+                    "--num_warmup_steps", "1", "--tokenizer_checkpoint", str(tok_dir),
+                    "--lpips_weights", str(alex_path), "--device", "cuda"])
+        total = read_counts()
+    finally:
+        trainer.generate_tokens, trainer.run_eval = generate, run_eval
+    lines = [json.loads(l) for l in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+    vis = [l for l in lines if "vis/rollout_psnr" in l]
+    require(len(vis) == 1 and len(seen) == 1, f"train_multi vis lines {vis}")
+    labels, out = seen[0]
+    p = cfg.num_prompt_frames
+    decode = make_token_decoder(*load_magvit2(str(tok_dir)))
+    side = math.isqrt(cfg.S)
+    pred_px = decode(out[:, p:].reshape(-1, side, side))
+    gt_px = decode(labels[:, p:].reshape(-1, side, side))
+    want = {"vis/rollout_psnr": float(np.mean(batch_psnr(pred_px, gt_px))),
+            "vis/rollout_lpips": float(np.mean(make_lpips_fn(
+                torch.load(alex_path, weights_only=True), net="alex")(pred_px, gt_px)))}
+    d = rel_diff(vis[0], want, list(want))
+    train = {k: total[k] - parts["rollout"][k] - parts["eval"][k] for k in total}
+    want_train = {k: 2 * n for k, n in train_launches(L, "transpose").items()}
+    rollout_k1 = L * (p + (cfg.T - p) * 3)  # 2 MaskGIT steps + the cache fill a frame
+    print(f"  (d) train_multi --tokenizer_checkpoint --lpips_weights (alex), B {B}: "
+          f"{json.dumps({k: v for k, v in vis[0].items() if k.startswith('vis/')})}; library "
+          f"{json.dumps(want)} on {tuple(pred_px.shape)} frames; max rel diff {d:.3e} (tol "
+          f"{EVAL_TOL}); launches: training {train}, eval {parts['eval']}, rollout "
+          f"{parts['rollout']}", flush=True)
+    require(d <= EVAL_TOL, "train_multi rollout_psnr / rollout_lpips")
+    require(train == want_train and parts["eval"]["K1'"] == L and parts["eval"]["K3'"] == L
+            and parts["rollout"]["K1'"] == rollout_k1
+            and sum(parts["rollout"].values()) == rollout_k1, "train_multi launches")
+    T, S = cfg.T, cfg.S + cfg.action_token_size
+    set_launches(records, {("K1'", (B * T, S, 8, 32)): train["K1'"] + L,
+                           ("K2'", (B * T, S, 8, 32)): train["K2'"],
+                           ("K3'", (B * S, T, 8, 32)): train["K3'"] + L,
+                           ("K4'", (B * S, T, 8, 32)): train["K4'"],
+                           ("K1'", (B, S, 8, 32)): rollout_k1}, add=True)
+
+
+def visualize_checks(tmp, tok_dir, records):
+    """Phase 20 (e): `generate` at B 8 (windows of 2 prompt and 2 generated
+    frames) on a 2-layer d256 checkpoint and on a 2-layer d512 STMAR one,
+    then `visualize` on each output (the trained tokenizer; a full-width
+    SVD-VAE file): its frames against the library's decode bit for bit,
+    then the GIF and comic PNG files where Pillow imports."""
+    import importlib.util
+
+    import torch
+
+    from hma_tpu_torch import visualize
+    from hma_tpu_torch.generate import main as generate_main
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.rollout.decode import load_svd_decoder, make_token_decoder
+    from hma_tpu_torch.tokenizer.convert import load_magvit2
+    from hma_tpu_torch.utils.checkpoint import save_checkpoint
+
+    B, W = 8, 4
+    dcfg = write_discrete_checkpoint(tmp / "d")
+    mcfg = mar_flagship_config(40)
+    mcfg.num_layers = 2
+    mar = STMAR(mcfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+    seq = mar.seq_len + mcfg.action_token_size
+    write_latent_dataset(tmp / "m" / "lat", mcfg, seed=14)
+    save_checkpoint(str(tmp / "m"), "mar", mar.state_dict(), mcfg)
+    del mar
+    torch.save(svd_vae_state(), tmp / "vae.pt")
+    pil = importlib.util.find_spec("PIL") is not None
+    print("  (e) Pillow " + ("imports: the GIF and PNG files are written" if pil
+                             else "does not import: the frames alone are checked"), flush=True)
+    cases = (("tokens", tmp / "d" / "ckpt", tmp / "d" / "data", [], str(tok_dir)),
+             ("latents", tmp / "m" / "mar", tmp / "m" / "lat", ["--use_feature"],
+              str(tmp / "vae.pt")))
+    for name, ckpt, data, extra, codec in cases:
+        reset_counts()
+        generate_main(["--checkpoint_dir", str(ckpt), "--val_data_dir", str(data),
+                       "--output_dir", str(tmp / name), "--batch_size", str(B),
+                       "--num_prompt_frames", "2", "--window_size", str(W), "--device", "cuda",
+                       *extra])
+        counts = read_counts()
+        args = ["--token_dir", str(tmp / name), "--tokenizer_ckpt", codec, "--max_examples",
+                "2", "--device", "cuda"]
+        frames = list(visualize.decode_examples(visualize.parse_args(args)))
+        meta = json.loads((tmp / name / "metadata.json").read_text())
+        per_ex = meta["num_prompt_frames"] + 2 * (meta["window_size"] - meta["num_prompt_frames"])
+        if name == "tokens":
+            video = np.fromfile(tmp / name / "video.bin", np.dtype(meta["token_dtype"])
+                                ).reshape(-1, meta["h"], meta["w"])
+            lib = make_token_decoder(*load_magvit2(codec))
+            want = [lib(video[i * per_ex:(i + 1) * per_ex]) for i in range(2)]
+        else:
+            C = meta["latent_channels"]
+            video = np.fromfile(tmp / name / "video.bin", np.float16).reshape(
+                -1, C, meta["h"], meta["w"]).transpose(0, 2, 3, 1)
+            dec = load_svd_decoder(codec)
+            want = [np.clip((dec(np.clip(video[i * per_ex:(i + 1) * per_ex], -25.0, 25.0)
+                                 .astype(np.float32)[None])[0] + 1) * 127.5, 0, 255)
+                    .astype(np.uint8) for i in range(2)]
+        same = len(frames) == 2 and all(np.array_equal(px, w) for (_, px, *_), w in
+                                        zip(frames, want))
+        files = []
+        if pil:
+            visualize.main([*args, "--output_dir", str(tmp / f"vis_{name}")])
+            files = sorted(p.name for p in (tmp / f"vis_{name}").iterdir())
+        print(f"  (e) visualize on generate's {name} (B {B}; launches {counts}): 2 examples of "
+              f"{frames[0][1].shape} uint8 frames, equal to the library decode bit for bit: "
+              f"{same}; files {files}", flush=True)
+        require(same, f"visualize {name} frames")
+        require(not pil or files == ["example_0.gif", "example_0_comic.png", "example_1.gif",
+                                     "example_1_comic.png"], f"visualize {name} files")
+        if name == "tokens":
+            k1 = dcfg.num_layers * (2 + (W - 2) * 3)  # 2 MaskGIT steps + the cache fill
+            require(counts["K1'"] == k1, f"generate launches {counts}")
+            set_launches(records, {("K1'", (B, 320, 8, 32)): k1}, add=True)
+        else:
+            k6 = (W - 2) * mcfg.maskgit_steps
+            k1 = (2 + (W - 2) + k6) * mcfg.num_layers
+            require(counts["K6'"] == k6 and counts["K1'"] == k1, f"generate launches {counts}")
+            set_launches(records, {
+                ("K1'", (B, seq, mcfg.num_heads, mcfg.d_model // mcfg.num_heads)): k1,
+                ("K6'", (100, B * 6, mcfg.vae_embed_dim * mcfg.patch_size**2, mcfg.diffloss_w,
+                         mcfg.diffloss_d)): k6}, add=True)
+
+
+def tokenizer_training_phase(records):
+    """Phase 20: LPIPS, the GAN step, the train_tokenizer CLI, the trainer's
+    pixel metrics and visualize."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lpips_checks(tmp)
+        torch.cuda.empty_cache()
+        gan_step_checks(tmp / "lpips_vgg.pt")
+        torch.cuda.empty_cache()
+        tok_dir = tokenizer_cli_checks(tmp, tmp / "lpips_vgg.pt", records)
+        trainer_vis_checks(tmp / "train", tok_dir, tmp / "lpips_alex.pt", records)
+        visualize_checks(tmp / "vis", tok_dir, records)
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 20)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 21)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -3465,7 +3997,10 @@ def main(argv=None) -> int:
               lambda: simulator_phase(records)),
              (19, "the SVD temporal VAE and the metric backbones; entry points: "
                   "build_simulator (STMAR, pixels), evaluate_feature --vae_checkpoint",
-              lambda: pixel_metrics_phase(records))]
+              lambda: pixel_metrics_phase(records)),
+             (20, "LPIPS and the tokenizer's GAN training; entry points: train_tokenizer, "
+                  "train_multi --tokenizer_checkpoint --lpips_weights, visualize",
+              lambda: tokenizer_training_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()

@@ -11,7 +11,8 @@ before each conv; bias-free ResBlock convs and encoder `conv_in`; the
 stride-2 downsample padded (1, 1); a 1x1 `nin_shortcut` where the width
 changes; depth-to-space in DCR order. Conv weights are held in the compute
 dtype (`hma_tpu` keeps them in fp32 and casts them at each call, which
-rounds them the same way), GroupNorm's in fp32. On the card the convs run
+rounds them the same way; training holds them in fp32 and casts them at
+each call, `param_dtype`), GroupNorm's in fp32. On the card the convs run
 channels-last, which changes no values.
 
 `VQConfig()` is the released architecture: base 128, ch_mult (1, 1, 2, 2,
@@ -35,10 +36,13 @@ from hma_tpu_torch.tokenizer.lfq import LFQResult, codes_to_latents, lfq_quantiz
 
 @dataclass
 class VQConfig:
-    """Tokenizer config: the architecture fields of hma_tpu's VQConfig and
-    the two LFQ entropy weights that `encode` reads. A sidecar's other keys
-    (the GAN and codebook training harness's) are dropped on load, as
-    hma_tpu drops unknown keys."""
+    """Tokenizer config: the architecture and the fields the GAN training
+    harness reads (`tokenizer/losses.py`, `train_vq.py`; `gen_loss_weight`
+    None turns the adaptive GAN weight on), each with hma_tpu's default. A
+    sidecar written by either package loads into either: unknown keys are
+    dropped on load, as hma_tpu drops them, and the fields hma_tpu has
+    beside these (`disc_conditional`, `pixelloss_weight` and the codebook
+    fields) are read by neither package."""
 
     in_channels: int = 3
     z_channels: int = 18
@@ -46,6 +50,20 @@ class VQConfig:
     base_channels: int = 128
     ch_mult: tuple = (1, 1, 2, 2, 4)
     num_res_blocks: int = 2
+
+    # loss knobs (used by the GAN training harness)
+    disc_in_channels: int = 3
+    disc_start: int = 0
+    disc_loss: str = "hinge"
+    disc_ndf: int = 64
+    disc_num_layers: int = 3
+    disc_factor: float = 1.0
+    disc_weight: float = 0.8
+    gen_loss_weight: Optional[float] = 0.1
+    lecam_loss_weight: float = 0.005
+    codebook_weight: float = 0.1
+    commit_weight: float = 0.25
+    perceptual_weight: float = 1.0
     sample_minimization_weight: float = 1.0
     batch_maximization_weight: float = 1.0
 
@@ -88,9 +106,23 @@ def _norm_swish(norm: GroupNorm, x: torch.Tensor, dtype) -> torch.Tensor:
     return F.silu(norm(x)).to(dtype)
 
 
+class Conv2d(nn.Conv2d):
+    """A conv whose weights may be held in another dtype than it computes in
+    (fp32 master weights for training): cast to `compute_dtype` at each
+    call, as hma_tpu's `param_dtype=float32` convs are."""
+
+    def __init__(self, *args, compute_dtype, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        return self._conv_forward(x, self.weight.to(self.compute_dtype), bias)
+
+
 def _conv(c_in, c_out, k, dtype, device, bias=True, stride=1):
-    return nn.Conv2d(c_in, c_out, k, stride=stride, padding=k // 2, bias=bias,
-                     dtype=dtype, device=device)
+    return Conv2d(c_in, c_out, k, stride=stride, padding=k // 2, bias=bias,
+                  dtype=dtype, device=device, compute_dtype=dtype)
 
 
 class ResBlock(nn.Module):
@@ -212,15 +244,22 @@ class Decoder(nn.Module):
 
 class VQModel(nn.Module):
     """Encoder + LFQ + Decoder, the codec. Images are NCHW in [-1, 1];
-    token grids (B, h, w) int32."""
+    token grids (B, h, w) int32. The convs compute in `dtype`; their weights
+    are held in `param_dtype` (default `dtype`; training keeps fp32 master
+    weights, as hma_tpu's convs do)."""
 
     def __init__(self, config: Optional[VQConfig] = None, dtype=torch.bfloat16,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 param_dtype=None):
         super().__init__()
         self.config = config or VQConfig()
         self.dtype = dtype
         self.encoder = Encoder(self.config, dtype, device)
         self.decoder = Decoder(self.config, dtype, device)
+        if param_dtype is not None and param_dtype != dtype:
+            for mod in self.modules():
+                if isinstance(mod, Conv2d):
+                    mod.to(param_dtype)
         if torch.device(device).type != "meta":
             self.reset_parameters(generator)
         if torch.device(device).type == "cuda":

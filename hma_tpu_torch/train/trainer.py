@@ -9,11 +9,14 @@ STMAR), temperature-weighted batch sampling, the training step of
 (the sampler position is replayed, each step's collate RNG is derived from
 (seed, step) and its training draws from the step number). The model runs
 in bf16 on the card and in fp32 on the CPU; parameters and optimizer state
-are fp32 on both.
+are fp32 on both. With a MagVit2 checkpoint (`--tokenizer_checkpoint`, a
+`.ckpt` or a `train_tokenizer` directory) the discrete rollout eval also
+decodes prediction and ground truth to pixels and reports their PSNR, and
+with `--lpips_weights` (an AlexNet LPIPS state dict) their LPIPS.
 
-Not ported (they raise): the mesh and multi-host, the native loader, the
-tokenizer/LPIPS pixel visualisation, muP, bf16 moments, JAX's
-`sliced_grads` lever and schedules other than "custom_cosine".
+Not ported (they raise): the mesh and multi-host, the native loader, muP,
+bf16 moments, JAX's `sliced_grads` lever and schedules other than
+"custom_cosine".
 """
 
 from __future__ import annotations
@@ -35,9 +38,13 @@ from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig, load_config
 from hma_tpu_torch.data.collators import maskgit_collate, maskgit_collate_feature
 from hma_tpu_torch.data.datasets import RawFeatureDataset, RawTokenDataset
 from hma_tpu_torch.data.sampler import MultiTaskBatchSampler
+from hma_tpu_torch.metrics.image import batch_psnr
+from hma_tpu_torch.metrics.lpips import make_lpips_fn
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
+from hma_tpu_torch.rollout.decode import make_token_decoder
 from hma_tpu_torch.rollout.maskgit import generate_tokens
+from hma_tpu_torch.tokenizer.convert import load_magvit2
 from hma_tpu_torch.train.step import (
     custom_cosine_schedule,
     domain_stacked_mask,
@@ -119,8 +126,6 @@ def _refuse_unported(args: TrainArgs) -> None:
         "a device mesh (--dp/--fsdp/--tp/--sp)":
             (args.dp or 1) * args.fsdp * args.tp * args.sp > 1,
         "--use_native_loader": args.use_native_loader,
-        "--tokenizer_checkpoint / --lpips_weights (pixel visualisation)":
-            bool(args.tokenizer_checkpoint or args.lpips_weights),
         "--mu_transfer (muP)": args.mu_transfer,
         "--adam_moment_dtype bfloat16": args.adam_moment_dtype != "float32",
         "--sliced_grads on": args.sliced_grads == "on",
@@ -332,6 +337,16 @@ def run_training(args: TrainArgs) -> dict:
     train_step = make_train_step(model, tx, microbatch=microbatch, **step_kw)
     eval_step = make_eval_step(model, **step_kw)
 
+    # pixel-space visualisation of the discrete rollout eval
+    vis_decode = vis_lpips = None
+    if args.tokenizer_checkpoint and not continuous:
+        vis_decode = make_token_decoder(*load_magvit2(args.tokenizer_checkpoint),
+                                        device=device)
+        if args.lpips_weights:
+            vis_lpips = make_lpips_fn(
+                torch.load(args.lpips_weights, map_location="cpu", weights_only=True),
+                net="alex", device=device)
+
     n_params = sum(p.numel() for p in model.parameters())
     exp_config = {**dataclasses.asdict(args), **{
         "model_parameters": int(n_params),
@@ -398,8 +413,8 @@ def run_training(args: TrainArgs) -> dict:
                 if (args.vis_every_n_steps and step_i % args.vis_every_n_steps == 0
                         and step_i < max_steps and not continuous):
                     logger.log({f"vis/{k}": v for k, v in rollout_eval(
-                        model, val_assembler, val_sets, args, config).items()},
-                        step=step_i)
+                        model, val_assembler, val_sets, args, config, vis_decode,
+                        vis_lpips).items()}, step=step_i)
 
                 if ckpt_every and step_i % ckpt_every == 0:
                     save(f"step_{step_i}", keep_last=args.keep_checkpoints)
@@ -435,10 +450,12 @@ def run_eval(eval_step, val_assembler: BatchAssembler, val_sets,
 
 
 def rollout_eval(model: STMaskGIT, val_assembler: BatchAssembler, val_sets,
-                 args: TrainArgs, config: GenieConfig) -> dict:
+                 args: TrainArgs, config: GenieConfig, decode=None, lpips_fn=None) -> dict:
     """Roll out the future frames of one val batch with the KV-cached engine
     (2 MaskGIT steps) and report the share of tokens equal to the ground
-    truth. Pixel PSNR/LPIPS need the tokenizer: not ported."""
+    truth; with a token decoder (`decode`), also the mean PSNR of the
+    decoded prediction against the decoded ground truth, and with
+    `lpips_fn` their mean LPIPS."""
     sampler = MultiTaskBatchSampler([len(d) for d in val_sets],
                                     batch_size=args.per_device_eval_batch_size,
                                     temperature=4.0, seed=1)
@@ -449,4 +466,13 @@ def rollout_eval(model: STMaskGIT, val_assembler: BatchAssembler, val_sets,
                           batch["domain_id"],
                           torch.Generator(tokens.device).manual_seed(0),
                           maskgit_steps=2)
-    return {"rollout_token_match": float((out[:, p:] == tokens[:, p:]).float().mean())}
+    gen, gt = out[:, p:], tokens[:, p:]
+    metrics = {"rollout_token_match": float((gen == gt).float().mean())}
+    if decode is not None:
+        h = w = math.isqrt(config.S)
+        pred_px = decode(gen.reshape(-1, h, w))
+        gt_px = decode(gt.reshape(-1, h, w))
+        metrics["rollout_psnr"] = float(np.mean(batch_psnr(pred_px, gt_px)))
+        if lpips_fn is not None:
+            metrics["rollout_lpips"] = float(np.mean(lpips_fn(pred_px, gt_px)))
+    return metrics

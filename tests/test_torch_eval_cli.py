@@ -309,7 +309,7 @@ def test_use_feature_forwards_every_flag(monkeypatch):
 
 
 @pytest.mark.parametrize("cli,extra,error,match", [
-    ("evaluate", ["--tokenizer_ckpt", "{tmp}"], NotImplementedError, "item 6e"),
+    ("evaluate", ["--tokenizer_ckpt", "{tmp}"], FileNotFoundError, "no tokenizer checkpoint"),
     ("evaluate", ["--raw_image_data"], ValueError, "requires --tokenizer_ckpt"),
     ("evaluate", ["--use_wandb"], NotImplementedError, "item 11"),
     ("evaluate", ["--fsdp", "2"], NotImplementedError, "item 10"),

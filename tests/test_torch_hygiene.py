@@ -16,6 +16,8 @@ import torch
 import hma_tpu_torch
 from hma_tpu_torch.generate import main as generate_main
 from hma_tpu_torch.train_multi import main as train_main
+from hma_tpu_torch.train_tokenizer import main as train_tokenizer_main
+from hma_tpu_torch.visualize import main as visualize_main
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "hma_tpu"}
@@ -47,7 +49,10 @@ def test_port_files_import_no_jax_or_hma_tpu():
             "hma_tpu_torch/sim/main.py", "hma_tpu_torch/sim/viewer.py",
             "hma_tpu_torch/sim/app.py", "hma_tpu_torch/tokenizer/svd_vae.py",
             "hma_tpu_torch/metrics/fid.py", "hma_tpu_torch/metrics/fvd.py",
-            "hma_tpu_torch/evaluate_feature.py"} <= names
+            "hma_tpu_torch/evaluate_feature.py", "hma_tpu_torch/metrics/lpips.py",
+            "hma_tpu_torch/tokenizer/losses.py", "hma_tpu_torch/tokenizer/discriminator.py",
+            "hma_tpu_torch/tokenizer/train_vq.py", "hma_tpu_torch/train_tokenizer.py",
+            "hma_tpu_torch/visualize.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -59,7 +64,9 @@ def test_importing_the_port_loads_no_jax():
             "hma_tpu_torch.rollout.mar, hma_tpu_torch.evaluate, hma_tpu_torch.sim.app, "
             "hma_tpu_torch.sim.main, hma_tpu_torch.sim.viewer, "
             "hma_tpu_torch.tokenizer.svd_vae, hma_tpu_torch.metrics.fid, "
-            "hma_tpu_torch.metrics.fvd, hma_tpu_torch.evaluate_feature; "
+            "hma_tpu_torch.metrics.fvd, hma_tpu_torch.evaluate_feature, "
+            "hma_tpu_torch.metrics.lpips, hma_tpu_torch.tokenizer.train_vq, "
+            "hma_tpu_torch.train_tokenizer, hma_tpu_torch.visualize; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -77,6 +84,11 @@ def test_entry_point_without_device_raises_on_cpu_host(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["--genie_config", str(tmp_path / "c.json"),
                     "--output_dir", str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tokenizer_main(["--train_data_dir", str(tmp_path),
+                              "--output_dir", str(tmp_path / "tok")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        visualize_main(["--token_dir", str(tmp_path), "--output_dir", str(tmp_path / "v")])
     assert hma_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -215,8 +215,8 @@ def test_load_magvit2_refuses(ckpt, tmp_path):
     path, _ = ckpt
     with pytest.raises(FileNotFoundError, match="magvit2.ckpt"):
         load_magvit2(str(tmp_path / "missing.ckpt"))
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        load_magvit2(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no tokenizer checkpoint"):
+        load_magvit2(str(tmp_path))  # a directory without train_tokenizer's tags
     state = torch.load(path, weights_only=False)["state_dict"]
     bad = tmp_path / "bad.ckpt"
     torch.save({k: v for k, v in state.items() if k != "decoder.conv_out.bias"}, bad)
