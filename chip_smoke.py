@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-one)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -254,7 +254,39 @@ Phases, each failing the run on any error:
      checkpoint (2 prompt and 2 generated frames), then `visualize` on each
      output (the trained tokenizer; a full-width SVD-VAE file): its frames
      equal the library's decode bit for bit, and its GIF and PNG files where
-     Pillow imports.
+     Pillow imports;
+ 21. the encode pipeline and the native loader: (a) toyworld's train
+     shards 0 and 1 of 60 at 256² (16 episodes, 640 frames) through
+     `encode_extern.main --encoder_type magvit` (the released codec,
+     `VQConfig()`, seed-0 weights written as phase 17 writes them, bf16, B
+     64) with the resize, the codec and the file writing timed, a val shard,
+     `merge_shards` and the token dataset; the fp32 codec on the card and on
+     the CPU against an fp64 witness on the CPU, CARD_CPU_FRAMES frames: the
+     card's distance at most FP64_WITNESS_RATIO times the CPU's, the bf16
+     codec (a control) beyond it, the tokens that differ counted; the bf16
+     share of tokens differing from fp32 on the card, first 64 frames, in
+     phase 17's window; (b) `resize_image` on synthetic
+     480x640 and 256x320 frames to 256², ms a frame on the host, against a
+     plain float64 resize (jax.image.resize's triangle filter, weights
+     written out): one level on at most RESIZE_SHARE of values; (c) toyworld
+     at 128² through `make_svd_encoder` (the released SVD-VAE architecture,
+     seed 0, bf16) and `encode_episodes`, and the merge; the fp32 encoder on
+     the card before the float16 cast against the fp64 witness as in (a),
+     the bf16 encode's float16 latents in the window SVD_BF16_WITNESS_RATIO,
+     which four faults (GroupNorm in bf16, the conv weights left in fp32,
+     SVD_SCALE left out, h and w swapped) must each leave;
+     (d) `train_multi` on the merged tokens, the d256 card at full width and
+     depth, B 8, TRAIN_STEPS steps with `--use_native_loader` and as many
+     with the Python assembler (each run's batches counted: all from the
+     loader, or all from the assembler): step cadence, the batches' host time, the
+     device's busy share of one iteration under the profiler, the launches
+     of phase 6's steps; then `--model_type continuous --use_native_loader`
+     on the merged latents, the d512 STMAR card at 2 layers, 2 steps, finite
+     losses and their launches; (e) GenieSimulator prompted with 3 uint8
+     toyworld frames through `encode_image`: the d256 card (bf16, full
+     depth) with (a)'s encoder, whose prompt tokens must equal (a)'s, and the
+     d512 STMAR card at 2 layers with (c)'s (K6′ at N 6), whose prompt
+     latents must equal (c)'s; one step each after a warm-up, timed.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -262,9 +294,12 @@ Prints one JSON line of kernel records, then the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -381,7 +416,7 @@ MAR_EXACT_TOL = 5e-5
 # read 0.41 to 0.65.
 LIVE_ADALN_SCALE = 10.0
 LIVE_HEAD_TOL = 1.043e-5
-MAR_REPEATS = 2  # timed full rollouts of the d512 card after one warm-up
+MAR_REPEATS = 1  # timed full rollouts of the d512 card after one warm-up
 MAR_OVERFIT_STEPS = 30
 # The d512 STMAR loss must fall by at least this much over MAR_OVERFIT_STEPS
 # with its draws fixed: half of the fall an H100 (700 W) reads (0.7030 ->
@@ -1227,30 +1262,51 @@ def denoise_breakdown():
               f"block {1e3 * (ms[4] - ms[0]) / (4 * K):.2f} us a step", flush=True)
 
 
+def device_profile():
+    """A torch.profiler context that records the card's activity only: the
+    host's op trace costs tens of seconds a profile and nothing reads it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_times(prof) -> dict:
+    """{name: [device ms, count]} of the stopped profile's device events,
+    read from its raw results (building the FunctionEvents that
+    key_averages aggregates costs tens of seconds on a profile of ~1e5
+    launches)."""
+    import torch
+
+    times = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = times.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    return times
+
+
 def profile_run(label, go, secs):
     """One more run of `go` under torch.profiler: device-busy share and the
     kernels that take the most device time (launches here are not counted)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         go()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_times(prof)
     if not rows:
         print(f"  {label} profile: the profiler saw no device time", flush=True)
         return
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    busy_ms = sum(ms for ms, _ in rows.values())
     print(f"  {label} profile: device busy {busy_ms:.2f} ms, "
           f"{busy_ms / (secs * 1e3):.1%} of the {secs * 1e3:.2f} ms median wall "
           f"time without the profiler, {busy_ms / (wall * 1e3):.1%} of the "
           f"{wall * 1e3:.2f} ms under it; top device time:", flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
-              f"{e.key[:90]}", flush=True)
+    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {ms:9.3f} ms  {n:6d} x  {name[:90]}", flush=True)
 
 
 def main_path_phase(records):
@@ -3092,6 +3148,15 @@ def svd_vae_state(seed=0):
             for k, v in vae.state_dict().items()}
 
 
+def group_norm_bf16(m, x):
+    """A planted fault: the port's GroupNorm in bf16, without its fp32 upcast."""
+    import torch
+    import torch.nn.functional as F
+
+    return F.group_norm(x.to(torch.bfloat16), m.num_groups, m.weight.to(torch.bfloat16),
+                        m.bias.to(torch.bfloat16), m.eps)
+
+
 def svd_vae(state, dtype, device="cuda"):
     import torch
 
@@ -3122,7 +3187,6 @@ def vae_phase_checks(state, path):
     """Phase 19 (a)-(c): the VAE card against CPU in fp32, bf16 against fp32
     with planted faults, and its bf16 times."""
     import torch
-    from torch.nn import functional as F
 
     from hma_tpu_torch.rollout.decode import load_svd_decoder
     from hma_tpu_torch.tokenizer.magvit2 import GroupNorm
@@ -3157,10 +3221,6 @@ def vae_phase_checks(state, path):
         with torch.no_grad():
             return psnr_pm1(vae16.decode(z12), x32)
 
-    def gn_bf16(m, x):  # GroupNorm in bf16: no fp32 upcast
-        return F.group_norm(x.to(torch.bfloat16), m.num_groups, m.weight.to(torch.bfloat16),
-                            m.bias.to(torch.bfloat16), m.eps)
-
     def mix_bf16(m, x, T):  # the residual stream left in bf16 after the blend
         return m.__class__.forward(m, x, T).to(torch.bfloat16)
 
@@ -3169,7 +3229,7 @@ def vae_phase_checks(state, path):
                        (m for m in vae32.modules() if isinstance(m, convs))))
     faults = {
         "GroupNorm in bf16": ([m for m in vae16.modules() if isinstance(m, GroupNorm)],
-                              gn_bf16),
+                              group_norm_bf16),
         "conv weights left in fp32": (list(convs32),
                                       lambda m, x: convs32[m](x.float()).to(torch.bfloat16)),
         "residual stream in bf16": ([m for m in vae16.modules()
@@ -3943,13 +4003,618 @@ def tokenizer_training_phase(records):
         visualize_checks(tmp / "vis", tok_dir, records)
 
 
+# Phase 21: the encode pipeline and the native loader. Toyworld's train split
+# has 480 episodes of 40 frames: shards 0 and 1 of 60 are 16 episodes, 640
+# frames; shard 0 of 48 of the val split is one episode.
+ENCODE_TRAIN_SHARDS = (0, 1)
+ENCODE_NUM_SHARDS = 60
+CARD_CPU_FRAMES = 4  # (a), (c): fp32 card and CPU against fp64 on these frames
+# The card's fp32 encoders against an fp64 witness on the CPU, as max|dz| /
+# max|z|, may be at most this many times the CPU fp32's own distance to the
+# witness. Toyworld's flat frames amplify rounding, so phase 17's and phase
+# 19's fixed card-vs-CPU limits (set on smooth frames, where the card reads
+# 3.585e-06 and 2.493e-06) do not transfer: on 4 toyworld frames the CPU's
+# fp32 codec reads 8.811e-05 and the card's 4.047e-04 (4.6 x), the SVD-VAE
+# encoder 2.015e-05 and 9.936e-05 (4.9 x) (an H100 80GB HBM3 at 700 W). The
+# bf16 codec, a control, must exceed the limit (181 x).
+FP64_WITNESS_RATIO = 20
+# (c) the bf16 SVD-VAE encode's float16 latents against the same witness, in
+# the same units, in a window that four faults must each leave. The same
+# H100 reads: sound 1239.6 x (the same in every call: fixed inputs and
+# cuDNN choices); GroupNorm in bf16 1414.9 x; the conv weights left in fp32
+# 1024.8 x; SVD_SCALE left out 221980.8 x; h and w swapped 59935.2 x. Each
+# bound lies halfway between the sound reading and the nearest fault's.
+SVD_BF16_WITNESS_RATIO = (1132, 1327)
+RESIZE_SHARE = 1e-3  # (b): uint8 values off the plain resize, by one level at most
+LOADER_BATCHES = 20  # batches timed on the host a loader
+
+
+class Stopwatch:
+    """Summed wall time per label, and the time a label's last call ended."""
+
+    def __init__(self):
+        self.secs, self.ended = {}, {}
+
+    def add(self, label, secs):
+        self.secs[label] = self.secs.get(label, 0.0) + secs
+
+    def wrap(self, label, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.ended[label] = time.perf_counter()
+            self.add(label, self.ended[label] - t0)
+            return out
+        return timed
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def timed_episodes(watch, encode_episodes):
+    """encode_episodes under `watch`: its wall time, and the file writing,
+    from the encoder's last return to its own."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        meta = encode_episodes(*a, **kw)
+        t1 = time.perf_counter()
+        watch.add("episodes", t1 - t0)
+        watch.add("write", t1 - watch.ended.get("codec", t0))
+        return meta
+    return run
+
+
+def encode_extern_timed(argv, watch):
+    """`encode_extern.main(argv)` with the resize, the encoder and
+    encode_episodes under `watch`; returns its metadata and wall time."""
+    from hma_tpu_torch.data import encode_extern, encode_openx
+
+    make = encode_extern.make_magvit_encoder
+
+    def make_timed(*a, **kw):
+        enc = make(*a, **kw)
+        timed = watch.wrap("codec", enc)
+        timed.vocab_size = enc.vocab_size
+        return timed
+
+    out = io.StringIO()
+    with patched(encode_openx, "resize_image", watch.wrap("resize", encode_openx.resize_image)), \
+            patched(encode_extern, "make_magvit_encoder", make_timed), \
+            patched(encode_extern, "encode_episodes",
+                    timed_episodes(watch, encode_extern.encode_episodes)), \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        encode_extern.main(argv)
+        wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    require(len(lines) == 1, f"encode_extern printed {lines[:-1]}")  # no episode failed
+    return json.loads(lines[-1]), wall
+
+
+def toy_shard(tmp, suffix, i, n, split):
+    """The directory encode_extern writes toyworld's shard i of n to."""
+    from hma_tpu_torch.data.merge_shards import SHARD_DATA_FORMAT
+
+    return SHARD_DATA_FORMAT.format(root=str(tmp / "shards"), name="toyworld", suffix=suffix,
+                                    i=i, n=n, split=split)
+
+
+def toyworld_frames(n, image_size, shard=0):
+    """The first n frames of toyworld's train shard `shard` of 60."""
+    from hma_tpu_torch.data.extern.toyworld import toyworld_episode_generator
+
+    frames = [s["image"] for ep in toyworld_episode_generator(shard, ENCODE_NUM_SHARDS,
+                                                              image_size=image_size)
+              for s in ep["steps"]]
+    return np.stack(frames[:n])
+
+
+def shares(watch, total):
+    return ", ".join(f"{k} {watch.secs.get(k, 0.0):.3f} s ({watch.secs.get(k, 0.0) / total:.1%})"
+                     for k in ("resize", "codec", "write"))
+
+
+def encode_discrete(tmp):
+    """Phase 21 (a): toyworld's train shards 0 and 1 of 60 at 256² through
+    `encode_extern.main --encoder_type magvit` (the released codec from seed
+    0, bf16, B 64), a val shard, `merge_shards`, the token dataset; the fp32
+    codec on the card against an fp64 witness, the bf16 share of differing
+    tokens. Returns the checkpoint and the merged token video."""
+    import torch
+
+    from hma_tpu_torch.data import merge_shards
+    from hma_tpu_torch.data.datasets import RawTokenDataset
+    from hma_tpu_torch.data.encode_openx import make_magvit_encoder
+    from hma_tpu_torch.rollout.decode import codec
+    from hma_tpu_torch.tokenizer.image_ops import normalize_image_np
+    from hma_tpu_torch.tokenizer.lfq import lfq_quantize
+
+    state = codec_model(torch.float32).state_dict()
+    ckpt = tmp / "magvit2.ckpt"
+    write_tokenizer_ckpt(ckpt, state)
+    common = ["--dataset_name", "toyworld", "--encoder_type", "magvit", "--encoder_name_or_path",
+              str(ckpt), "--out_root", str(tmp / "shards"), "--image_size", "256"]
+    watch, wall, frames = Stopwatch(), 0.0, 0
+    for i in ENCODE_TRAIN_SHARDS:
+        meta, secs = encode_extern_timed(common + ["--shard_ind", str(i), "--num_shards",
+                                                   str(ENCODE_NUM_SHARDS)], watch)
+        wall += secs
+        frames += meta["num_images"]
+    enc_s = watch.secs["episodes"]
+    print(f"  (a) encode_extern --encoder_type magvit (bf16, B 64), toyworld train shards "
+          f"{ENCODE_TRAIN_SHARDS} of {ENCODE_NUM_SHARDS} at 256²: {frames} frames in {enc_s:.3f} "
+          f"s, {frames / enc_s:.1f} frames/s end to end ({frames / wall:.1f} with loading the "
+          f"checkpoint and building the codec, {wall:.3f} s); {shares(watch, enc_s)}", flush=True)
+    encode_extern_timed(common + ["--data_split", "val", "--shard_ind", "0",
+                                  "--num_shards", "48"], Stopwatch())
+    data = tmp / "data"
+    for split, n, shards_ in (("train", ENCODE_NUM_SHARDS, ENCODE_TRAIN_SHARDS),
+                              ("val", 48, (0,))):
+        merged = merge_shards.merge_shards(
+            [toy_shard(tmp, "magvit", i, n, split) for i in shards_],
+            str(data / f"toyworld_magvit_max1000000_{split}"))
+    meta = json.loads((data / "toyworld_magvit_max1000000_train" / "metadata.json").read_text())
+    ds = RawTokenDataset(data / "toyworld_magvit_max1000000_train", window_size=12,
+                         use_actions=True)
+    video = np.fromfile(data / "toyworld_magvit_max1000000_train" / "video.bin",
+                        np.uint32).reshape(-1, 16, 16)
+    item = ds[len(ds) - 1]
+    print(f"  merged: {meta}; val {merged['num_images']} frames; the token dataset reads "
+          f"{len(ds)} windows, the last {item['input_ids'].shape} ids, actions "
+          f"{item['action_ids'].shape}", flush=True)
+    require(meta["vocab_size"] == 2**18 and meta["h"] == meta["w"] == 16
+            and meta["token_dtype"] == "uint32" and meta["num_images"] == frames == 640
+            and meta["num_episodes"] == 16 and len(ds) > 0, "merged token dataset")
+    require(int(item["input_ids"].max()) < 2**18, "token dataset ids")
+
+    # fp32 card and CPU against an fp64 witness on the CPU (toyworld's flat
+    # frames amplify rounding: CPU fp32 itself is ~3e-4 of max|z| off fp64)
+    pixels = toyworld_frames(CARD_CPU_FRAMES, 256)
+    x = torch.from_numpy(normalize_image_np(pixels)).permute(0, 3, 1, 2)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        z64 = codec(state, device="cpu", dtype=torch.float64).encode_without_quantize(
+            x.double()).permute(0, 2, 3, 1)
+        z32 = codec(state, device="cpu", dtype=torch.float32).encode_without_quantize(
+            x).permute(0, 2, 3, 1)
+    cpu_s = time.perf_counter() - t0
+    gpu = codec(state, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        zg = gpu.encode_without_quantize(x.cuda()).permute(0, 2, 3, 1).cpu()
+        zb = codec(state, device="cuda").encode_without_quantize(x.cuda()).permute(
+            0, 2, 3, 1).float().cpu()  # the control: bf16
+    e32, eg, eb = witness_errors(z64, z32, zg, zb)
+    tok_cpu = lfq_quantize(z32).indices.numpy()
+    tok64 = lfq_quantize(z64.float()).indices.numpy()
+    gpu32 = make_magvit_encoder(gpu)(toyworld_frames(64, 256))
+    flipped = (zg > 0) != (z64 > 0)
+    worst = float(z64.abs()[flipped].max() / z64.abs().max()) if flipped.any() else 0.0
+    share = float((video[:64] != gpu32).mean())
+    print(f"  fp32 against an fp64 witness on the CPU, first {CARD_CPU_FRAMES} frames, as "
+          f"max|dz|/max|z| (max|z| {float(z64.abs().max()):.3f}): CPU fp32 {e32:.3e}, card "
+          f"fp32 {eg:.3e} ({eg / e32:.1f} x, limit {FP64_WITNESS_RATIO} x), control card bf16 "
+          f"{eb:.3e} ({eb / e32:.1f} x, must exceed the limit); card fp32 tokens differ from "
+          f"the CPU's at {int((gpu32[:CARD_CPU_FRAMES] != tok_cpu).sum())} and from fp64's at "
+          f"{int((gpu32[:CARD_CPU_FRAMES] != tok64).sum())} of {tok64.size} ({int(flipped.sum())} "
+          f"flipped channels, largest fp64 |z| among them {worst:.3e} of max|z|; CPU side "
+          f"{cpu_s:.1f} s); first 64 frames: the bf16 encode's tokens differ from fp32 on the "
+          f"card at {share:.4%} (phase 17's window {CODEC_BF16_TOKEN_SHARE}); "
+          f"{len(np.unique(gpu32))} distinct fp32 tokens", flush=True)
+    require(eg <= FP64_WITNESS_RATIO * e32, "fp32 codec card vs the fp64 witness")
+    require(eb > FP64_WITNESS_RATIO * e32, "the witness limit misses the bf16 control")
+    require(CODEC_BF16_TOKEN_SHARE[0] <= share <= CODEC_BF16_TOKEN_SHARE[1],
+            "bf16 token share")
+    return ckpt, video
+
+
+def witness_errors(z64, *zs):
+    """max|z - z64| / max|z64| of each z, against the fp64 witness."""
+    scale = z64.abs().max()
+    return [float((z.double() - z64).abs().max() / scale) for z in zs]
+
+
+def plain_resize_weights(n_in, n_out):
+    """(n_out, n_in) float64 weights of jax.image.resize's "bilinear":
+    a triangle kernel widened by the scale on a shrink, normalised, with
+    half-pixel centres."""
+    inv = n_in / n_out
+    kernel_scale = max(inv, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(sample[:, None] - np.arange(n_in)[None]) / kernel_scale)
+    w /= w.sum(1, keepdims=True)
+    return w
+
+
+def resize_check():
+    """Phase 21 (b): resize_image on frames of the data's real shapes against
+    a plain float64 resize in numpy."""
+    from hma_tpu_torch.tokenizer.image_ops import center_crop_to_square, resize_image
+
+    for h, w in ((480, 640), (256, 320)):
+        frames = synthetic_frames(8, seed=h, side=w)[:, (w - h) // 2:(w - h) // 2 + h]
+        resize_image(frames[0], 256)  # warm-up
+        t0 = time.perf_counter()
+        got = np.stack([resize_image(f, 256) for f in frames])
+        ms = (time.perf_counter() - t0) / len(frames) * 1e3
+        sq = np.stack([center_crop_to_square(f) for f in frames]).astype(np.float64)
+        wy = plain_resize_weights(sq.shape[1], 256)
+        rows = np.tensordot(wy, sq, axes=([1], [1]))  # (256, n, side, c)
+        want = np.tensordot(rows, wy, axes=([2], [1])).transpose(1, 0, 3, 2)
+        want = np.clip(np.round(want), 0, 255)
+        diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        share = float((diff > 0).mean())
+        print(f"  (b) resize_image {h}x{w} -> 256² on the host: {ms:.3f} ms a frame; against the "
+              f"plain float64 resize: max diff {diff.max()}, {share:.4%} of values differ "
+              f"(limit 1 level on {RESIZE_SHARE:.1%})", flush=True)
+        require(diff.max() <= 1 and share <= RESIZE_SHARE, f"resize {h}x{w}")
+
+
+def svd_encoder_faults(vae32, frames):
+    """`make_svd_encoder` over a bf16 copy of `vae32` on the uint8 `frames`,
+    as (N, h, w, C) float32 of its float16 latents: "sound", and with a fault
+    planted in the model (GroupNorm in bf16, the conv weights left in fp32)
+    or in its output (SVD_SCALE left out, h and w swapped)."""
+    import torch
+
+    from hma_tpu_torch.data.datasets import SVD_SCALE
+    from hma_tpu_torch.data.encode_openx import make_svd_encoder
+    from hma_tpu_torch.tokenizer.magvit2 import GroupNorm
+    from hma_tpu_torch.tokenizer.svd_vae import SVDTemporalVAE
+
+    vae16 = SVDTemporalVAE(dtype=torch.bfloat16, device="cuda").eval()
+    vae16.load_state_dict(vae32.state_dict())
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d)
+    convs32 = dict(zip((m for m in vae16.modules() if isinstance(m, convs)),
+                       (m for m in vae32.modules() if isinstance(m, convs))))
+    planted = {
+        "GroupNorm in bf16": ([m for m in vae16.modules() if isinstance(m, GroupNorm)],
+                              group_norm_bf16),
+        "conv weights left in fp32": (list(convs32),
+                                      lambda m, x: convs32[m](x.float()).to(torch.bfloat16))}
+    encode = make_svd_encoder(vae16)
+    nhwc = lambda z: torch.from_numpy(z.astype(np.float32)).permute(0, 2, 3, 1)  # noqa: E731
+    out = {"sound": nhwc(encode(frames))}
+    for name, (mods, forward) in planted.items():
+        for m in mods:
+            m.forward = functools.partial(forward, m)
+        try:
+            out[name] = nhwc(encode(frames))
+        finally:
+            for m in mods:
+                del m.forward
+    out["SVD_SCALE left out"] = out["sound"] / SVD_SCALE
+    out["h and w swapped"] = out["sound"].transpose(1, 2)
+    return out
+
+
+def encode_continuous(tmp):
+    """Phase 21 (c): the SVD-VAE encoder (the released architecture, seed 0)
+    in fp32 on the card and the CPU against an fp64 witness before the
+    float16 cast; toyworld at 128² through `make_svd_encoder` (bf16) and
+    `encode_episodes`, and the merge; the merged bf16 latents in a window
+    against the same witness that planted faults must leave. Returns the
+    bf16 encoder and the merged latent video."""
+    import torch
+
+    from hma_tpu_torch.data import merge_shards
+    from hma_tpu_torch.data.datasets import SVD_SCALE, RawFeatureDataset
+    from hma_tpu_torch.data.encode_openx import encode_episodes, make_svd_encoder
+    from hma_tpu_torch.data.extern.toyworld import toyworld_episode_generator
+    from hma_tpu_torch.tokenizer.image_ops import normalize_image_np
+    from hma_tpu_torch.tokenizer.svd_vae import SVDTemporalVAE
+
+    g = torch.Generator("cuda").manual_seed(0)
+    vae = SVDTemporalVAE(dtype=torch.float32, device="cuda", generator=g).eval()
+    x = torch.from_numpy(normalize_image_np(toyworld_frames(CARD_CPU_FRAMES, 128)))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        zs = []
+        for dtype in (torch.float64, torch.float32):
+            cpu = SVDTemporalVAE(dtype=dtype, device="cpu").eval()
+            cpu.load_state_dict(vae.state_dict())
+            zs.append(cpu.encode(x.to(dtype)) * SVD_SCALE)
+        cpu_s = time.perf_counter() - t0
+        zg = (vae.encode(x.cuda()) * SVD_SCALE).cpu()
+    z64, z32 = zs
+    del cpu
+    watch = Stopwatch()
+    enc = make_svd_encoder(device="cuda")  # bf16, B 32
+    timed = watch.wrap("codec", enc)
+    from hma_tpu_torch.data import encode_openx
+
+    frames = 0
+    with patched(encode_openx, "resize_image", watch.wrap("resize", encode_openx.resize_image)):
+        run = timed_episodes(watch, encode_episodes)
+        for i in ENCODE_TRAIN_SHARDS:
+            meta = run(toyworld_episode_generator(i, ENCODE_NUM_SHARDS, image_size=128),
+                       toy_shard(tmp, "vae", i, ENCODE_NUM_SHARDS, "train"), "toyworld",
+                       encode_batch=timed, image_size=128)
+            frames += meta["num_images"]
+    enc_s = watch.secs["episodes"]
+    print(f"  (c) make_svd_encoder (bf16, B 32) + encode_episodes, train shards "
+          f"{ENCODE_TRAIN_SHARDS} at 128²: {frames} frames in {enc_s:.3f} s, "
+          f"{frames / enc_s:.1f} frames/s; {shares(watch, enc_s)}", flush=True)
+    encode_episodes(toyworld_episode_generator(0, 48, split="val", image_size=128),
+                    toy_shard(tmp, "vae", 0, 48, "val"),
+                    "toyworld", encode_batch=enc, image_size=128)
+    data = tmp / "data"
+    for split, n, shards_ in (("train", ENCODE_NUM_SHARDS, ENCODE_TRAIN_SHARDS),
+                              ("val", 48, (0,))):
+        merge_shards.merge_shards(
+            [toy_shard(tmp, "vae", i, n, split) for i in shards_],
+            str(data / f"toyworld_vae_max1000000_{split}"))
+    path = data / "toyworld_vae_max1000000_train"
+    meta = json.loads((path / "metadata.json").read_text())
+    video = np.fromfile(path / "video.bin", np.float16).reshape(-1, 4, 16, 16)
+    ds = RawFeatureDataset(path, window_size=12, use_actions=True)
+    nhwc = lambda z: torch.from_numpy(np.asarray(z, np.float32)).permute(0, 2, 3, 1)  # noqa: E731
+    merged = nhwc(video[:CARD_CPU_FRAMES])
+    e32, eg, eb = witness_errors(z64, z32, zg, merged)
+    faults = svd_encoder_faults(vae, toyworld_frames(CARD_CPU_FRAMES, 128))
+    same = torch.equal(faults.pop("sound"), merged)
+    readings = {k: e / e32 for k, e in zip(faults, witness_errors(z64, *faults.values()))}
+    del vae
+    lo, hi = SVD_BF16_WITNESS_RATIO
+    print(f"  SVD-VAE encode x SVD_SCALE against an fp64 witness on the CPU, "
+          f"{CARD_CPU_FRAMES} toyworld frames at 128², as max|dz|/max|z| (max|z| "
+          f"{float(z64.abs().max()):.3f}): CPU fp32 {e32:.3e}, card fp32 {eg:.3e} "
+          f"({eg / e32:.1f} x, limit {FP64_WITNESS_RATIO} x); the bf16 encode's float16 "
+          f"latents as merged {eb:.3e} ({eb / e32:.1f} x, window {lo}-{hi} x; the same "
+          f"frames encoded alone equal them: {same}); "
+          f"faults: " + ", ".join(f"'{k}' {v:.1f} x" for k, v in readings.items())
+          + f" (CPU side {cpu_s:.1f} s)", flush=True)
+    require(eg <= FP64_WITNESS_RATIO * e32, "SVD-VAE encode card vs the fp64 witness")
+    require(lo <= eb / e32 <= hi, "SVD-VAE bf16 encode against the fp64 witness")
+    require(same, "the bf16 encoder alone against the merged latents")
+    require(lo > FP64_WITNESS_RATIO, "the bf16 window overlaps the fp32 limit")
+    for name, r in readings.items():
+        require(not lo <= r <= hi, f"the SVD-VAE bf16 window misses the fault '{name}'")
+    print(f"  merged: {meta}; the latent dataset reads {len(ds)} windows", flush=True)
+    require(meta["latent_channels"] == 4 and meta["h"] == meta["w"] == 16
+            and meta["token_dtype"] == "float16" and meta["num_images"] == 640
+            and len(ds) > 0 and np.isfinite(video.astype(np.float32)).all(),
+            "merged latent dataset")
+    return enc, video
+
+
+def train_cli_timed(argv, n_steps):
+    """`train_multi.main(argv)` with each training step timed (the card
+    synchronised), its batches' host time (the loader's or the assembler's,
+    the copy to the card included), and one loop iteration (step 4's start
+    to step 5's) under the profiler. Returns (step cadences s, host batch s
+    list, device busy s and wall s of the profiled iteration, and the calls:
+    loaders made, native batches and assembler batches)."""
+    import torch
+
+    from hma_tpu_torch.train import trainer
+    from hma_tpu_torch.train_multi import main as train_main
+
+    starts, batch_secs, prof = [], [], {}
+    make_step = trainer.make_train_step
+
+    def make_timed(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(batch, rng=0):
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            if len(starts) == 5:
+                prof["p"].stop()
+                prof["wall"] = starts[4] - starts[3]
+            if len(starts) == 4:
+                prof["p"] = device_profile()
+                prof["p"].start()
+            out = step(batch, rng)
+            torch.cuda.synchronize()
+            if len(starts) == n_steps:
+                starts.append(time.perf_counter())
+            return out
+        return run
+
+    watch, calls = Stopwatch(), {"loaders": 0, "native": 0, "assembler": 0}
+    make_loaders = trainer.make_native_loaders
+
+    def counted(key, fn):
+        def run(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    def timed_loaders(*a, **kw):
+        made = make_loaders(*a, **kw)
+        calls["loaders"] += len(made)
+        for ld in made:
+            ld.next_batch = watch.wrap("batch", ld.next_batch)
+        return made
+
+    call = trainer.BatchAssembler.__call__
+    with patched(trainer, "make_train_step", make_timed), \
+            patched(trainer, "make_native_loaders", timed_loaders), \
+            patched(trainer, "native_batch",
+                    counted("native", watch.wrap("batch", trainer.native_batch))), \
+            patched(trainer.BatchAssembler, "__call__",
+                    counted("assembler", watch.wrap("batch", call))):
+        train_main(argv)
+    busy = sum(ms for ms, _ in device_times(prof["p"]).values()) / 1e3
+    return np.diff(starts), watch.secs["batch"], busy, prof["wall"], calls
+
+
+def training_from_encoded(tmp, records):
+    """Phase 21 (d): train_multi on the merged tokens, the d256 card at full
+    width and depth, B 8, 6 steps with the native loader and 6 with the
+    assembler; then the continuous family from the merged latents with the
+    native loader, the d512 STMAR card at 2 layers."""
+    from hma_tpu_torch.config import load_config
+    from hma_tpu_torch.train_multi import main as train_main
+
+    (tmp / "split.yaml").write_text("domains: toyworld\n")
+    steps = TRAIN_STEPS
+    base = ["--train_split", str(tmp / "split.yaml"), "--data_root", str(tmp / "data"),
+            "--window_size", "12", "--per_device_train_batch_size", "8",
+            "--per_device_eval_batch_size", "8", "--max_eval_steps", "0", "--log_every", "1",
+            "--num_warmup_steps", "1", "--device", "cuda"]
+    card = str(ROOT / "hma_tpu_torch" / "configs" / "magvit_n32_h8_d256_action.json")
+    want = {k: steps * v for k, v in train_launches(32, "transpose").items()}
+    for native in (True, False):
+        label = "--use_native_loader" if native else "the assembler"
+        reset_counts()
+        cadence, batch_s, busy, wall, calls = train_cli_timed(
+            ["--genie_config", card, "--output_dir", str(tmp / "run"),
+             "--max_train_steps", str(steps), *base,
+             *(["--use_native_loader"] if native else [])], steps)
+        counts = read_counts()
+        lines = [json.loads(l) for l in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+        losses = [l["train/loss"] for l in lines if "train/loss" in l]
+        shutil.rmtree(tmp / "run")
+        med = float(np.median(cadence[1:]))
+        print(f"  (d) train_multi, d256 card (32 layers), B 8, {steps} steps with {label}: "
+              f"step cadence {', '.join(f'{c:.4f}' for c in cadence)} s, median (after the "
+              f"first) {med:.4f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; batches on the "
+              f"host {steps / batch_s:.1f} /s ({batch_s / steps * 1e3:.2f} ms a batch, the copy "
+              f"to the card included); device busy {busy * 1e3:.2f} ms in step 4's iteration, "
+              f"{busy / wall:.1%} of its {wall * 1e3:.1f} ms under the profiler, {busy / med:.1%} "
+              f"of the median; launches {counts}; batches from {calls}", flush=True)
+        require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                f"train_multi {label} losses")
+        # the run labelled native took its batches from the loader, the other
+        # from the assembler
+        want_calls = ({"loaders": 1, "native": steps, "assembler": 0} if native
+                      else {"loaders": 0, "native": 0, "assembler": steps})
+        require(calls == want_calls, f"train_multi {label} batches {calls}, want {want_calls}")
+        require(counts == want, f"train_multi {label} launches {counts}, want {want}")
+        set_launches(records, {("K1'", (96, 320, 8, 32)): counts["K1'"],
+                               ("K2'", (96, 320, 8, 32)): counts["K2'"],
+                               ("K3'", (2560, 12, 8, 32)): counts["K3'"],
+                               ("K4'", (2560, 12, 8, 32)): counts["K4'"]}, add=True)
+
+    mcfg = load_config(str(ROOT / "hma_tpu_torch" / "configs" / "mar_n32_h8_d512_action.json"))
+    mcfg.num_layers = 2
+    mcfg.save_pretrained(str(tmp / "mar2.json"))
+    reset_counts()
+    train_main(["--genie_config", str(tmp / "mar2.json"), "--model_type", "continuous",
+                "--output_dir", str(tmp / "mrun"), "--max_train_steps", "2",
+                "--use_native_loader", *base])
+    counts = read_counts()
+    lines = [json.loads(l) for l in (tmp / "mrun" / "metrics.jsonl").read_text().splitlines()]
+    losses = [l["train/loss"] for l in lines if "train/loss" in l]
+    shutil.rmtree(tmp / "mrun")
+    print(f"  train_multi --model_type continuous --use_native_loader, d512 STMAR card at 2 "
+          f"layers, B 8, 2 steps: losses {losses}; launches {counts}", flush=True)
+    want = {k: 2 * v for k, v in train_launches(2, "transpose").items()}
+    require(len(losses) == 2 and all(math.isfinite(x) for x in losses), "STMAR native losses")
+    require(counts == want, f"STMAR native launches {counts}, want {want}")
+    set_launches(records, {("K1'", (96, 128, 8, 64)): counts["K1'"],
+                           ("K2'", (96, 128, 8, 64)): counts["K2'"],
+                           ("K3'", (1024, 12, 8, 64)): counts["K3'"],
+                           ("K4'", (1024, 12, 8, 64)): counts["K4'"]}, add=True)
+
+
+def pixel_prompt_simulators(ckpt, tokens, svd_encode, latents, records):
+    """Phase 21 (e): GenieSimulator prompted with 3 uint8 toyworld frames
+    through `encode_image`: the d256 card (bf16, full depth) with (a)'s
+    encoder, the d512 STMAR card at 2 layers with (c)'s; the prompts equal
+    what (a) and (c) wrote for those frames; one step each after a warm-up."""
+    import torch
+
+    from hma_tpu_torch.data.datasets import SVD_SCALE
+    from hma_tpu_torch.data.encode_openx import make_magvit_encoder
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.sim.simulator import GenieSimulator
+    from hma_tpu_torch.tokenizer.convert import load_magvit2
+
+    H = 3
+    encode = make_magvit_encoder(*load_magvit2(str(ckpt)), device="cuda")  # as (a): bf16, B 64
+    cfg = flagship_config(40)
+    model = STMaskGIT(cfg, dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0)).eval()
+    moves = np.random.default_rng(0).normal(size=(2, cfg.d_actions[0])).astype(np.float32)
+    sim = GenieSimulator(model, prompt_horizon=H, maskgit_steps=2, temperature=0.0,
+                         encode_image=lambda f: encode(f[None])[0])
+    t0 = time.perf_counter()
+    sim.set_initial_state(toyworld_frames(H, 256))
+    prompt_ms = (time.perf_counter() - t0) * 1e3
+    same = np.array_equal(sim._token_cache, tokens[:H].astype(np.int32))
+    sim.step(moves[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = sim.step(moves[1])
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    print(f"  (e) d256 simulator (bf16, 32 layers, B 1) prompted with 3 toyworld frames at 256² "
+          f"through encode_image: encode {prompt_ms:.2f} ms, prompt tokens equal (a)'s "
+          f"{same}; one step {ms:.2f} ms (model {sim._step_times[-1] * 1e3:.2f} ms), tokens "
+          f"{out.shape}; launches {counts}", flush=True)
+    require(same, "pixel prompt tokens")
+    require(counts["K1'"] == (H + 2 + 1) * cfg.num_layers and out.shape == (16, 16),
+            f"pixel-prompted simulator {counts}")
+    set_launches(records, {("K1'", (1, 320, 8, 32)): counts["K1'"]}, add=True)
+    del sim, model
+
+    mcfg = mar_flagship_config(40)
+    mcfg.num_layers = 2
+    mar = STMAR(mcfg, dtype=torch.bfloat16, device="cuda",
+                generator=torch.Generator("cuda").manual_seed(0)).eval()
+    # the prompt in the datasets' convention: the stored latents x SVD_SCALE
+    msim = GenieSimulator(
+        mar, prompt_horizon=H, maskgit_steps=mcfg.maskgit_steps, temperature=1.0,
+        encode_image=lambda f: svd_encode(f[None])[0].transpose(1, 2, 0).astype(np.float32)
+        * SVD_SCALE)
+    msim.set_initial_state(toyworld_frames(H, 128))
+    want = latents[:H].astype(np.float32).transpose(0, 2, 3, 1) * SVD_SCALE
+    same = np.array_equal(msim._token_cache, want)
+    msim.step(moves[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = msim.step(moves[1])
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    print(f"  d512 STMAR simulator (bf16, 2 layers, B 1, {mcfg.maskgit_steps} MaskGIT x "
+          f"{mcfg.num_sampling_steps} denoise steps) prompted with 3 toyworld frames at 128²: "
+          f"prompt latents equal (c)'s {same}; one step {ms:.2f} ms, latents {out.shape}, "
+          f"finite {bool(np.isfinite(out).all())}; launches {counts}", flush=True)
+    require(same and np.isfinite(out).all() and out.shape == (16, 16, 4), "STMAR pixel prompt")
+    require(counts["K1'"] == (H + mcfg.maskgit_steps + 1) * mcfg.num_layers
+            and counts["K6'"] == mcfg.maskgit_steps, f"STMAR pixel-prompted simulator {counts}")
+    set_launches(records, {
+        ("K1'", (1, mar.seq_len + mcfg.action_token_size, 8, 64)): counts["K1'"],
+        ("K6'", (100, 6, mar.patch_dim, mcfg.diffloss_w, mcfg.diffloss_d)): counts["K6'"]},
+        add=True)
+
+
+def encode_pipeline_phase(records):
+    """Phase 21: the encode pipeline, the native loader under train_multi and
+    the pixel-prompted simulators."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt, tokens = encode_discrete(tmp)
+        resize_check()
+        torch.cuda.empty_cache()
+        svd_encode, latents = encode_continuous(tmp)
+        torch.cuda.empty_cache()
+        training_from_encoded(tmp, records)
+        torch.cuda.empty_cache()
+        pixel_prompt_simulators(ckpt, tokens, svd_encode, latents, records)
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 21)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 22)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -4000,7 +4665,10 @@ def main(argv=None) -> int:
               lambda: pixel_metrics_phase(records)),
              (20, "LPIPS and the tokenizer's GAN training; entry points: train_tokenizer, "
                   "train_multi --tokenizer_checkpoint --lpips_weights, visualize",
-              lambda: tokenizer_training_phase(records))]
+              lambda: tokenizer_training_phase(records)),
+             (21, "the encode pipeline (encode_extern, make_svd_encoder, merge_shards, "
+                  "resize_image); train_multi --use_native_loader; pixel-prompted simulators",
+              lambda: encode_pipeline_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()

@@ -62,3 +62,7 @@ DATA_FREQ_TABLE = {
     "robomimic_new_perturb": 6,
     "robomimic_multitask_new_perturb": 6,
 }
+
+# Validation split sizing (reference: encode_openx_dataset.py:46-48)
+VAL_RATIO = 0.05
+MIN_VAL_EXAMPLES, MAX_VAL_EXAMPLES = 20, 200

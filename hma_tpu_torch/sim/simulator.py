@@ -83,6 +83,8 @@ class GenieSimulator(LearnedSimulator):
         model: the world model, in eval mode.
         decode_tokens: discrete: (N, h, w) ints -> (N, H, W, 3) uint8.
         decode_latents: continuous: (N, h, w, C) latents -> (N, H, W, 3) uint8.
+        encode_image: (H, W, 3) uint8 -> (h, w) tokens / (h, w, C) latents,
+            for pixel prompts (e.g. a `data.encode_openx` encoder of one frame).
         prompt_horizon: context frames kept in the rolling cache.
         physics_simulator: optional ground truth for PSNR comparison.
         compute_delta_psnr: per-step ΔPSNR, PSNR(gt, pred) less the mean
@@ -95,6 +97,7 @@ class GenieSimulator(LearnedSimulator):
                  maskgit_steps: int = 2, temperature: float = 0.0,
                  decode_tokens: Optional[Callable] = None,
                  decode_latents: Optional[Callable] = None,
+                 encode_image: Optional[Callable] = None,
                  physics_simulator: Optional[Simulator] = None,
                  compute_delta_psnr: bool = False, seed: int = 0):
         cfg = model.config
@@ -110,6 +113,7 @@ class GenieSimulator(LearnedSimulator):
         self.maskgit_steps = maskgit_steps
         self.temperature = temperature
         self._decode = decode_latents if self.backbone == "stmar" else decode_tokens
+        self.encode_image = encode_image
         self.physics = physics_simulator
         self.compute_delta_psnr = compute_delta_psnr
         if compute_delta_psnr and (physics_simulator is None or self._decode is None):
@@ -126,10 +130,14 @@ class GenieSimulator(LearnedSimulator):
     # ------------------------------------------------------------------
 
     def set_initial_state(self, frames, actions=None) -> None:
-        """frames: (prompt_horizon, h, w) token grids (discrete) or
-        (prompt_horizon, h, w, C) latents (continuous). Pixel prompts wait
-        for the encode pipeline."""
+        """frames: (prompt_horizon, h, w) token grids (discrete),
+        (prompt_horizon, h, w, C) latents (continuous), or (prompt_horizon, H,
+        W, 3) uint8 images, each encoded by `encode_image`."""
         frames = np.asarray(frames)
+        if frames.ndim == 4 and frames.dtype == np.uint8:
+            if self.encode_image is None:
+                raise ValueError("pixel prompts need encode_image")
+            frames = np.stack([np.asarray(self.encode_image(f)) for f in frames])
         want_ndim = 3 if self.backbone == "stmaskgit" else 4
         if frames.shape[0] != self.prompt_horizon or frames.ndim != want_ndim:
             raise ValueError(f"{self.prompt_horizon} frames of {want_ndim - 1} dims "

@@ -12,11 +12,12 @@ in bf16 on the card and in fp32 on the CPU; parameters and optimizer state
 are fp32 on both. With a MagVit2 checkpoint (`--tokenizer_checkpoint`, a
 `.ckpt` or a `train_tokenizer` directory) the discrete rollout eval also
 decodes prediction and ground truth to pixels and reports their PSNR, and
-with `--lpips_weights` (an AlexNet LPIPS state dict) their LPIPS.
+with `--lpips_weights` (an AlexNet LPIPS state dict) their LPIPS. With
+`--use_native_loader` the batches come from the C++ loader
+(`data/native_loader.py`), one per domain, resumed bit for bit.
 
-Not ported (they raise): the mesh and multi-host, the native loader, muP,
-bf16 moments, JAX's `sliced_grads` lever and schedules other than
-"custom_cosine".
+Not ported (they raise): the mesh and multi-host, muP, bf16 moments, JAX's
+`sliced_grads` lever and schedules other than "custom_cosine".
 """
 
 from __future__ import annotations
@@ -125,7 +126,6 @@ def _refuse_unported(args: TrainArgs) -> None:
     unported = {
         "a device mesh (--dp/--fsdp/--tp/--sp)":
             (args.dp or 1) * args.fsdp * args.tp * args.sp > 1,
-        "--use_native_loader": args.use_native_loader,
         "--mu_transfer (muP)": args.mu_transfer,
         "--adam_moment_dtype bfloat16": args.adam_moment_dtype != "float32",
         "--sliced_grads on": args.sliced_grads == "on",
@@ -264,6 +264,49 @@ class BatchAssembler:
         return out
 
 
+def native_batch(batch: dict, ds_idx: int, device, discrete: bool) -> dict:
+    """A native loader's numpy batch as the assembler's tensors on `device`:
+    int64 token ids, or fp32 latents with their int32 mask; the loader's
+    actions are already padded to `max_d_action`."""
+    out = {k: torch.from_numpy(v.astype(np.int64) if discrete and k != "action_ids" else v)
+           .to(device) for k, v in batch.items()}
+    out["domain_id"] = ds_idx
+    return out
+
+
+def make_native_loaders(args: TrainArgs, config: GenieConfig, domains, batch_size: int,
+                        start_counts, discrete: bool) -> list:
+    """One C++ loader a domain over `{domain}_magvit_max1000000_train` (tokens)
+    or `{domain}_vae_max1000000_train` (latents), domain i seeded seed + i and
+    started at batch `start_counts[i]`. The stride is the loader's default,
+    from the dataset's frequency, as `hma_tpu`'s trainer leaves it."""
+    from hma_tpu_torch.data.native_loader import NativeFeatureLoader, NativeTokenLoader
+
+    loader, kind = ((NativeTokenLoader, "magvit") if discrete
+                    else (NativeFeatureLoader, "vae"))
+    return [loader(f"{args.data_root}/{d}_{kind}_max1000000_train", config,
+                   batch_size=batch_size, seed=args.seed + i,
+                   action_width=config.max_d_action, start_batch=int(start_counts[i]))
+            for i, d in enumerate(domains)]
+
+
+def native_start_counts(sampler: MultiTaskBatchSampler, steps_per_epoch: int,
+                        start_step: int, seed: int) -> np.ndarray:
+    """The batches each domain's loader delivered before `start_step`: the
+    training loop's domain draws replayed (one generator an epoch, seeded
+    seed + epoch, one draw a step, as the loop draws them one at a time)."""
+    n = len(sampler.dataset_sizes)
+    counts = np.zeros(n, np.int64)
+    if start_step:
+        dist = sampler.generate_tasks_distribution()
+        done_epochs = start_step // steps_per_epoch
+        for e in range(done_epochs + 1):
+            r = np.random.default_rng(seed + e)
+            for _ in range(steps_per_epoch if e < done_epochs else start_step % steps_per_epoch):
+                counts[int(r.choice(n, p=dist))] += 1
+    return counts
+
+
 def stacked_param_mask(model, config: GenieConfig) -> dict[str, bool]:
     """The same model (its own class: STMaskGIT or STMAR) with one more
     domain, built on the meta device: the parameters whose shapes change are
@@ -332,6 +375,19 @@ def run_training(args: TrainArgs) -> dict:
         model.load_state_dict(model_state)
         tx.load_state_dict(opt_state)
 
+    # The C++ loader implements neither per-item action dropping nor the
+    # truncated one-batch dataset of overfit_first_batch: with either, the
+    # Python assembler serves the batches, as in hma_tpu. Each loader starts
+    # at the batches it had delivered before start_step, so a resumed run
+    # draws what a straight one does.
+    native_loaders = None
+    if (args.use_native_loader and not args.overfit_first_batch
+            and not getattr(config, "drop_action_ratio", 0.0)):
+        native_loaders = make_native_loaders(
+            args, config, domains, effective_batch,
+            native_start_counts(sampler, steps_per_epoch, start_step, args.seed),
+            not continuous)
+
     microbatch = B if args.gradient_accumulation_steps > 1 else 0
     step_kw = dict(continuous=continuous, action_loss_weight=config.action_loss_weight)
     train_step = make_train_step(model, tx, microbatch=microbatch, **step_kw)
@@ -373,15 +429,26 @@ def run_training(args: TrainArgs) -> dict:
     with MetricLogger(args.output_dir, config=exp_config) as logger:
         while step_i < max_steps:
             sampler.set_epoch(epoch)
+            # the native path's domain draw: one generator an epoch
+            dist = sampler.generate_tasks_distribution()
+            task_rng = np.random.default_rng(args.seed + epoch)
             for indices in sampler:
                 if step_i >= max_steps:
                     break
                 if skip > 0:
                     skip -= 1
+                    if native_loaders is not None:
+                        task_rng.choice(len(native_loaders), p=dist)
                     continue
+                if native_loaders is not None:
+                    ds_idx = int(task_rng.choice(len(native_loaders), p=dist))
+                    batch = native_batch(native_loaders[ds_idx].next_batch(), ds_idx,
+                                         device, not continuous)
+                else:
+                    batch = assembler(indices, step=step_i)
                 # the step's draws are keyed by its number, as hma_tpu's
                 # PRNGKey(step): a resumed run draws what a straight one does
-                metrics = train_step(assembler(indices, step=step_i), rng=step_i)
+                metrics = train_step(batch, rng=step_i)
                 step_i += 1
 
                 if step_i % args.log_every == 0 or step_i == max_steps:
@@ -424,6 +491,8 @@ def run_training(args: TrainArgs) -> dict:
             if args.save_second_epoch and epoch == 1:
                 save("epoch_1_pinned")  # outside the retention policy
         save("final_checkpt")
+    for loader in native_loaders or ():
+        loader.close()
     return last_metrics
 
 

@@ -4,8 +4,9 @@ The flags of `hma_tpu.train_multi`, plus `--device` (default: the CUDA
 card; raises if there is none). Execution is the single-device trainer in
 `hma_tpu_torch/train/trainer.py`, for both families (`--model_type
 discrete` or `continuous`); `--tokenizer_checkpoint` / `--lpips_weights`
-add the discrete rollout eval's pixel PSNR and LPIPS; flags for what it
-does not port yet (a mesh, the native loader, muP, bf16 moments) raise.
+add the discrete rollout eval's pixel PSNR and LPIPS; `--use_native_loader`
+feeds the batches from the C++ loader; flags for what it does not port yet
+(a mesh, muP, bf16 moments) raise.
 """
 
 from __future__ import annotations

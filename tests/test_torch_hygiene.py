@@ -1,6 +1,6 @@
 """The port stands alone: no file of hma_tpu_torch/ or chip_smoke.py imports
-JAX, optax, flax or hma_tpu (the collators, sampler and logger are the port's
-own copies), importing the port leaves JAX unloaded, an entry point with no
+JAX, optax, flax or hma_tpu (the collators, sampler, logger, extern readers
+and the native loader's C++ source are the port's own copies), importing the port leaves JAX unloaded, an entry point with no
 device on a host without a card raises instead of using the CPU, and the
 build compiles every CUDA source under csrc/, K5''s resident entries
 among them."""
@@ -52,7 +52,12 @@ def test_port_files_import_no_jax_or_hma_tpu():
             "hma_tpu_torch/evaluate_feature.py", "hma_tpu_torch/metrics/lpips.py",
             "hma_tpu_torch/tokenizer/losses.py", "hma_tpu_torch/tokenizer/discriminator.py",
             "hma_tpu_torch/tokenizer/train_vq.py", "hma_tpu_torch/train_tokenizer.py",
-            "hma_tpu_torch/visualize.py"} <= names
+            "hma_tpu_torch/visualize.py", "hma_tpu_torch/data/encode_extern.py",
+            "hma_tpu_torch/data/merge_shards.py", "hma_tpu_torch/data/native_loader.py",
+            "hma_tpu_torch/data/extern/toyworld.py", "hma_tpu_torch/data/extern/ego4d.py",
+            "hma_tpu_torch/data/extern/egoexo4d.py",
+            "hma_tpu_torch/data/extern/epic_kitchen.py",
+            "hma_tpu_torch/data/extern/robomimic.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -66,7 +71,11 @@ def test_importing_the_port_loads_no_jax():
             "hma_tpu_torch.tokenizer.svd_vae, hma_tpu_torch.metrics.fid, "
             "hma_tpu_torch.metrics.fvd, hma_tpu_torch.evaluate_feature, "
             "hma_tpu_torch.metrics.lpips, hma_tpu_torch.tokenizer.train_vq, "
-            "hma_tpu_torch.train_tokenizer, hma_tpu_torch.visualize; "
+            "hma_tpu_torch.train_tokenizer, hma_tpu_torch.visualize, "
+            "hma_tpu_torch.data.encode_extern, hma_tpu_torch.data.merge_shards, "
+            "hma_tpu_torch.data.native_loader, hma_tpu_torch.data.extern.ego4d, "
+            "hma_tpu_torch.data.extern.egoexo4d, hma_tpu_torch.data.extern.epic_kitchen, "
+            "hma_tpu_torch.data.extern.robomimic; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -4,16 +4,25 @@ rolled caches step for step (at 1 MaskGIT step, and at 2 with JAX's unmask
 draws handed in), over the tiny STMAR card hma_tpu's latents with JAX's
 draws; the physics comparison's PSNR equals hma_tpu's, a failing decoder
 fails the step, the driver saves its frames, `build_simulator` loads
-both families, and the pixel entry points raise without a card."""
+both families, and the pixel entry points raise without a card. A pixel
+prompt through a small codec's `encode_image` gives hma_tpu's prompt tokens
+and greedy next frame."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from hma_tpu.data.encode_openx import make_magvit_encoder as jax_make_magvit_encoder
+from hma_tpu.data.extern.toyworld import toyworld_episode_generator
 from hma_tpu.sim.simulator import GenieSimulator as JaxGenieSimulator
 from hma_tpu.sim.simulator import ReplaySimulator as JaxReplaySimulator
+from hma_tpu.tokenizer.convert import torch_state_dict_to_flax
+from hma_tpu.tokenizer.magvit2 import VQConfig as JaxVQConfig
 from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig
+from hma_tpu_torch.data.encode_openx import make_magvit_encoder
 from hma_tpu_torch.sim.app import DIRECTION_ACTIONS, build_simulator
 from hma_tpu_torch.sim.main import InteractiveDigitalWorld
 from hma_tpu_torch.sim.simulator import GenieSimulator, PhysicsSimulator, ReplaySimulator
@@ -90,6 +99,34 @@ def test_stmar_sim_matches_jax():
         assert got.shape == (cfg.h, cfg.h, cfg.vae_embed_dim) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(sim._token_cache, jsim._token_cache, rtol=1e-5, atol=1e-5)
+
+
+def test_pixel_prompt_matches_jax(pair):
+    """Three 8² toyworld frames through the small codec (4² tokens, the tiny
+    card's grid), encoded by each package's encoder one frame at a time."""
+    jm, params, tm = pair
+    small = dict(base_channels=32, ch_mult=(1, 2), num_res_blocks=1)
+    codec = VQModel(VQConfig(**small), dtype=torch.float32, device="cpu",
+                    generator=torch.Generator().manual_seed(9)).eval()
+    jax_params = torch_state_dict_to_flax({k: v.numpy() for k, v in codec.state_dict().items()})
+    enc = make_magvit_encoder(codec, batch_size=1)
+    jax_enc = jax_make_magvit_encoder(jax_params, JaxVQConfig(**small), batch_size=1,
+                                      dtype=jnp.float32)
+    ep = next(toyworld_episode_generator(0, 1, image_size=8, episode_len=H + 2))
+    pixels = np.stack([s["image"] for s in ep["steps"]])
+    jsim = JaxGenieSimulator(jm, params, prompt_horizon=H, maskgit_steps=1,
+                             encode_image=lambda f: jax_enc(f[None])[0])
+    sim = GenieSimulator(tm, prompt_horizon=H, maskgit_steps=1,
+                         encode_image=lambda f: enc(f[None])[0])
+    for s in (jsim, sim):
+        s.set_initial_state(pixels[:H])
+    assert sim._token_cache.shape == (H, 4, 4) and sim._token_cache.dtype == np.int32
+    np.testing.assert_array_equal(sim._token_cache, jsim._token_cache)
+    np.testing.assert_array_equal(sim._token_cache, enc(pixels[:H]).astype(np.int32))
+    move = np.asarray([0.5, -0.25, 1.0, 0.0], np.float32)
+    np.testing.assert_array_equal(sim.step(move), jsim.step(move))
+    with pytest.raises(ValueError, match="encode_image"):
+        GenieSimulator(tm, prompt_horizon=H).set_initial_state(pixels[:H])
 
 
 def _fake_decode_tokens(tokens):

@@ -191,7 +191,7 @@ def test_nan_streak_aborts_and_unported_flags_raise(synth_env, monkeypatch):
     with pytest.raises(RuntimeError, match="NaN guard"):
         trainer.run_training(args)
     for flag in (["--mu_transfer"], ["--adam_moment_dtype", "bfloat16"],
-                 ["--use_native_loader"], ["--lr_scheduler_type", "linear"],
+                 ["--lr_scheduler_type", "linear"],
                  ["--fsdp", "2"], ["--sliced_grads", "on"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_main(_train_argv(root, data, root / "no", *flag))
