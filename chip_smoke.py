@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-one)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-two)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -286,7 +286,29 @@ Phases, each failing the run on any error:
      toyworld frames through `encode_image`: the d256 card (bf16, full
      depth) with (a)'s encoder, whose prompt tokens must equal (a)'s, and the
      d512 STMAR card at 2 layers with (c)'s (K6′ at N 6), whose prompt
-     latents must equal (c)'s; one step each after a warm-up, timed.
+     latents must equal (c)'s; one step each after a warm-up, timed;
+ 22. the rest of the model and training surface: (a) the d256 card with
+     `action_network` "concat+cross_attention" and `jointly_predict_actions`
+     (JOINT_CARD, written at run time; 40 domains, full width and depth):
+     the training step as phase 6's (B 8, bf16, remat, the sliced AdamW;
+     64/32/64/32 of K1'-K4' a step, finite loss and action_loss) beside
+     phase 6's median; the 2-layer card in fp32 with the action mask handed
+     in, card against CPU: logits and action_pred to 1e-5 of max|ref|, both
+     losses likewise, every gradient to GRAD_TOL (the cross-attention's and
+     the readout's among them); fp32 frame_logits = compute_logits
+     (EXACT_TOL) with and without actions; the reference compat's full
+     forward runs and its frame_logits raises; the cached rollout at B 8
+     (2 prompt frames, 2 MaskGIT steps) with its K1' launches;
+     `train_multi --action_network concat+cross_attention --mu_transfer` at
+     2 layers, then `generate` from its checkpoint. (b) the d512 STMAR card
+     at full width and depth, B 8: the step with fp32 moments and no muP,
+     then with muP (width mult 2, the model built with use_mup) and bf16
+     moments, each as phase 11's transpose step, with peak memory; its fall
+     against the moments' bytes reckoned; every moment bf16;
+     `stochastic_round` on the card against the CPU bit for bit on
+     SR_ELEMENTS values with the specials; `train_multi --model_type
+     continuous --mu_transfer --adam_moment_dtype bfloat16` at 2 layers,
+     resumed from step 2, bit for bit with the straight run at step 4.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -295,6 +317,7 @@ Prints one JSON line of kernel records, then the nvidia-smi line, and last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -1874,6 +1897,7 @@ def training_phase(records):
           f">= {OVERFIT_MARGIN}", flush=True)
     require(all(math.isfinite(x) for x in losses), "overfit loss not finite")
     require(losses[-1] <= losses[0] - OVERFIT_MARGIN, "overfit loss did not fall")
+    return med
 
 
 def exactness_phase():
@@ -4608,13 +4632,420 @@ def encode_pipeline_phase(records):
         pixel_prompt_simulators(ckpt, tokens, svd_encode, latents, records)
 
 
+# Phase 22: the rest of the model and training surface. The d256 card with
+# cross-attention action injection and joint action prediction is written
+# at run time (JOINT_CARD's fields changed, no other), so the port's configs/
+# holds no card that hma_tpu's lacks.
+JOINT_CARD = {"action_network": "concat+cross_attention", "jointly_predict_actions": True}
+SR_ELEMENTS = 1 << 20  # stochastic rounding, card against CPU, bit for bit
+
+
+def joint_config(tmp, num_domains: int = 40, num_layers=None):
+    """The d256 card with JOINT_CARD's fields, written to `tmp` and read
+    back, plus the synthetic action domains."""
+    from hma_tpu_torch.config import GenieConfig
+
+    card = json.loads((ROOT / "hma_tpu_torch" / "configs" /
+                       "magvit_n32_h8_d256_action.json").read_text())
+    path = Path(tmp) / "magvit_n32_h8_d256_joint_cross_attention.json"
+    path.write_text(json.dumps({**card, **JOINT_CARD}, indent=1))
+    cfg = with_synthetic_domains(GenieConfig.from_pretrained(str(path)), num_domains)
+    if num_layers is not None:
+        cfg.num_layers = num_layers
+    return cfg
+
+
+def timed_steps(step, batch, label, want, rng0=0):
+    """One warm-up step, then TRAIN_STEPS timed ones with the launch counts
+    set to 0 just before and read just after: (median s, launches per step,
+    peak bytes, the last step's metrics). Every step finite, none skipped,
+    the launches `want`'s."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    step(batch, rng=rng0)
+    torch.cuda.synchronize()
+    reset_counts()
+    secs, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(batch, rng=rng0 + i + 1))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    per_step = {k: v / TRAIN_STEPS for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    for m in metrics:
+        vals = [m[k].item() for k in ("loss", "grad_norm", "action_loss") if k in m]
+        require(all(math.isfinite(x) for x in vals), f"{label}: step not finite: {m}")
+        require(m["skipped"].item() == 0.0, f"{label}: a step was skipped")
+    require(per_step == want, f"{label}: launches per step {per_step}, want {want}")
+    med = sorted(secs)[len(secs) // 2]
+    print(f"  {label}: {TRAIN_STEPS} steps {', '.join(f'{t:.4f}' for t in secs)} s, "
+          f"median {med:.4f} s; last {', '.join(f'{k} {v.item():.4f}' for k, v in metrics[-1].items())}; "
+          f"launches per step {per_step}; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    return med, per_step, peak, metrics[-1]
+
+
+def joint_training(cfg, records, timings):
+    """(a) the joint cross-attention d256 card's training step, B 8, bf16."""
+    import torch
+
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    B = 8
+    model = STMaskGIT(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                      generator=torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_action = sum(p.numel() for n, p in model.named_parameters()
+                   if "action_projector" in n or "action_readout" in n)
+    tx = make_domain_sliced_optimizer(model, 1e-4, stacked_mask=stacked_param_mask(model, cfg),
+                                      num_domains=cfg.num_domains)
+    step = make_train_step(model.train(), tx, action_loss_weight=cfg.action_loss_weight)
+    batch = train_batch(cfg, B, "cuda")
+    med, per_step, _, last = timed_steps(step, batch, "joint cross-attention d256 step, B 8",
+                                         train_launches(cfg.num_layers, "transpose"))
+    require("action_loss" in last, "the joint card's step has no action_loss")
+    base = timings.get("d256 step")
+    tokens = B * cfg.T * cfg.S
+    print(f"  {n_params / 1e6:.1f}M params ({n_action / 1e6:.2f}M in the "
+          f"cross-attention and the readout); {tokens / med:.1f} tokens/s; phase 6's "
+          f"d256 step in this call: "
+          f"{'not run' if base is None else f'{base:.4f} s, joint / phase 6 {med / base:.3f}'}",
+          flush=True)
+    set_launches(records, {("K1'", (B * cfg.T, 320, 8, 32)): per_step["K1'"] * TRAIN_STEPS,
+                           ("K2'", (B * cfg.T, 320, 8, 32)): per_step["K2'"] * TRAIN_STEPS,
+                           ("K3'", (B * 320, cfg.T, 8, 32)): per_step["K3'"] * TRAIN_STEPS,
+                           ("K4'", (B * 320, cfg.T, 8, 32)): per_step["K4'"] * TRAIN_STEPS},
+                 add=True)
+    profile_run("joint cross-attention d256 step", lambda: step(batch, rng=99), med)
+
+
+def joint_exactness(cfg2):
+    """(a) the 2-layer joint card in fp32, card against CPU: logits,
+    action_pred, both losses and every gradient, the action mask handed in;
+    then cached = full on the card, and the reference compat's full forward
+    and its refusal in frame_logits. Returns the card's fp32 model."""
+    import torch
+
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+
+    g = torch.Generator().manual_seed(3)
+    host = STMaskGIT(cfg2, dtype=torch.float32, device="cpu", remat=True, generator=g)
+    with torch.no_grad():  # wake the zero-init tokens, biases and readout
+        for p in host.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    card = STMaskGIT(cfg2, dtype=torch.float32, device="cuda", remat=True)
+    card.load_state_dict({k: v.cuda() for k, v in host.state_dict().items()})
+    B, T = 2, cfg2.T
+    mask = (torch.rand(B, T, 1, 1, generator=g) < 0.5).float()
+    mask[0, :, 0, 0] = torch.arange(T) % 2
+    outs, grads = [], []
+    reset_counts()
+    for model, device in ((card, "cuda"), (host, "cpu")):
+        b = train_batch(cfg2, B, device)
+        am = mask.to(device)
+        with torch.no_grad():
+            logits, pred = model.compute_logits(b["input_ids"], b["action_ids"], 0, am)
+        out = model(b["input_ids"], b["labels"], b["action_ids"], 0, action_mask=am)
+        (out["loss"] + cfg2.action_loss_weight * out["action_loss"]).backward()
+        outs.append({"logits": logits.cpu(), "action_pred": pred.cpu(),
+                     "loss": out["loss"].detach().cpu(),
+                     "action_loss": out["action_loss"].detach().cpu()})
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    counts = read_counts()
+    require(all(counts[k] for k in TRAINING_KERNELS), f"the card's pass missed a kernel: {counts}")
+    require(grads[0].keys() == grads[1].keys(), "gradient sets differ")
+    errs = {k: ((outs[0][k] - outs[1][k]).abs().max() / outs[1][k].abs().max()).item()
+            for k in outs[1]}
+    worst, worst_name = 0.0, ""
+    for n, want in grads[1].items():
+        scale = want.abs().max().item()
+        err = (grads[0][n] - want).abs().max().item()
+        ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    named = [n for n in grads[1] if "action_projector" in n or "action_readout" in n]
+    print(f"  2-layer joint card, B=2, fp32, card vs CPU: max|d|/max|ref| "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol 1e-5); "
+          f"{len(grads[1])} gradient tensors ({len(named)} of the cross-attention and "
+          f"the readout), worst max|dg|/max|g| {worst:.3e} at {worst_name} "
+          f"(tol {GRAD_TOL}); launches {counts}", flush=True)
+    # per layer to_q, to_k, to_v, proj (kernel and bias) and the qk-LN's two;
+    # the readout's kernel and bias
+    require(len(named) == cfg2.num_layers * 7 + 2, f"cross-attention / readout grads {named}")
+    require(all(v <= 1e-5 for v in errs.values()), f"card differs from the CPU: {errs}")
+    require(worst <= GRAD_TOL, f"gradient {worst_name} differs: {worst:.3e}")
+
+    # cached = full on the card, fp32, B 1, with actions (cross-attention
+    # reads every frame's action embedding) and without (the mask tokens)
+    card.eval()
+    b = train_batch(cfg2, 1, "cuda")
+    worst = 0.0
+    with torch.no_grad():
+        for acts in (b["action_ids"], None):
+            full, _ = card.compute_logits(b["labels"], acts, 0)
+            k, v = card.init_cache(1, with_actions=acts is not None)
+            for t in range(T):
+                got, _, _ = card.frame_logits(b["labels"][:, t], t, k, v, acts, 0)
+                want = full[:, :, t].reshape(1, 2, -1, cfg2.S).permute(0, 3, 1, 2)
+                worst = max(worst, (got - want).abs().max().item())
+        ref = STMaskGIT(dataclasses.replace(cfg2, cross_attention_compat="reference"),
+                        dtype=torch.float32, device="cuda").eval()
+        ref.load_state_dict(card.state_dict())
+        ref_logits, ref_pred = ref.compute_logits(b["labels"], b["action_ids"], 0)
+        fixed, _ = card.compute_logits(b["labels"], b["action_ids"], 0)
+        moved = (ref_logits - fixed).abs().max().item()
+        k, v = ref.init_cache(1)
+        try:
+            ref.frame_logits(b["labels"][:, 0], 0, k, v, b["action_ids"], 0)
+            refused = False
+        except NotImplementedError:
+            refused = True
+    print(f"  fp32 frame_logits vs compute_logits on the joint card, {T} frames, with "
+          f"and without actions: max abs err {worst:.3e} (tol {EXACT_TOL}); "
+          f"compat='reference': full forward finite "
+          f"{bool(torch.isfinite(ref_logits).all() and torch.isfinite(ref_pred).all())}, "
+          f"{moved:.3e} from the fixed mode's logits, frame_logits refused {refused}",
+          flush=True)
+    require(math.isfinite(worst) and worst <= EXACT_TOL, "joint card: cached path not exact")
+    require(bool(torch.isfinite(ref_logits).all()) and moved > 0 and refused,
+            "compat='reference': full forward or cached refusal")
+
+
+def joint_rollout(cfg, records):
+    """(a) the joint card's cached rollout at B 8, full depth, bf16."""
+    import torch
+
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.rollout.maskgit import generate_tokens
+
+    B, P, STEPS = 8, 2, 2
+    model = STMaskGIT(cfg, dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0)).eval()
+    b = train_batch(cfg, B, "cuda")
+
+    def go():
+        return generate_tokens(model, b["labels"], P, b["action_ids"], 0,
+                               torch.Generator("cuda").manual_seed(1), maskgit_steps=STEPS,
+                               temperature=0.0)
+
+    go()  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = go()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    frames = B * (cfg.T - P)
+    want = (P + (cfg.T - P) * (STEPS + 1)) * cfg.num_layers
+    print(f"  joint card cached rollout, B {B}, {P} prompt + {cfg.T - P} frames, "
+          f"{STEPS} MaskGIT steps: {secs:.4f} s, {frames / secs:.2f} frames/s; "
+          f"launches {counts} (K1' want {want})", flush=True)
+    require(counts["K1'"] == want and counts["K3'"] == 0, f"joint rollout launches {counts}")
+    require(torch.equal(out[:, :P], b["labels"][:, :P]), "joint rollout: prompt changed")
+    require(bool(((out >= 0) & (out < cfg.image_vocab_size)).all()),
+            "joint rollout: tokens out of range")
+    set_launches(records, {("K1'", (B, 320, 8, 32)): counts["K1'"]}, add=True)
+    profile_run("joint card cached rollout", go, secs)
+
+
+def joint_entry(tmp):
+    """(a) train_multi --action_network concat+cross_attention --mu_transfer on
+    the 2-layer joint card, then generate from its checkpoint."""
+    from hma_tpu_torch.config import load_config
+    from hma_tpu_torch.train_multi import main as train_main
+
+    cfg = joint_config(tmp, 1, num_layers=2)
+    cfg.action_network = "concat+modulate"  # the flag sets it
+    data = tmp / "domain_0_magvit_max1000000_train"
+    write_dataset(data, cfg, seed=4)
+    cfg.save_pretrained(str(tmp / "joint.json"))
+    (tmp / "split.yaml").write_text("domains: domain_0\n")
+    reset_counts()
+    train_main(["--genie_config", str(tmp / "joint.json"), "--output_dir", str(tmp / "run"),
+                "--train_split", str(tmp / "split.yaml"), "--data_root", str(tmp),
+                "--window_size", str(cfg.T), "--per_device_train_batch_size", "2",
+                "--per_device_eval_batch_size", "2", "--max_train_steps", "4",
+                "--overfit_first_batch", "--checkpointing_steps", "2",
+                "--eval_every_n_steps", "4", "--max_eval_steps", "1", "--log_every", "1",
+                "--num_warmup_steps", "1", "--learning_rate", "3e-4",
+                "--action_network", "concat+cross_attention", "--mu_transfer"])
+    counts = read_counts()
+    lines = [json.loads(l) for l in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+    losses = [(l["train/loss"], l["train/action_loss"]) for l in lines if "train/loss" in l]
+    saved = load_config(str(tmp / "run" / "final_checkpt" / "config.json"))
+    print(f"  train_multi --action_network concat+cross_attention --mu_transfer: "
+          f"{len(losses)} steps, (loss, action_loss) "
+          f"{', '.join(f'({a:.4f}, {b:.4f})' for a, b in losses)}; the checkpoint's card: "
+          f"{saved.action_network}, use_mup {saved.use_mup}; launches {counts}", flush=True)
+    require(len(losses) == 4 and all(math.isfinite(x) for l in losses for x in l),
+            "train_multi losses")
+    require(saved.action_network == "concat+cross_attention" and saved.use_mup,
+            "the checkpoint's card")
+    require(all(counts[k] for k in TRAINING_KERNELS), f"train_multi missed a kernel: {counts}")
+    check_generate(tmp / "run", data, tmp / "gen", cfg.T, cfg.S, cfg.image_vocab_size)
+
+
+def lowp_training(records):
+    """(b) the d512 STMAR card's B 8 step with fp32 moments and no muP, then
+    with muP and bf16 moments (the model rebuilt with use_mup, as
+    --mu_transfer builds it), peak memory of each."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import mup_base_model, stacked_param_mask
+
+    B = 8
+    base_cfg = mar_flagship_config(40)
+    runs = {}
+    for label, mup in (("fp32 moments, no muP", False), ("muP + bf16 moments", True)):
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(base_cfg, use_mup=mup)
+        model = STMAR(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                      generator=torch.Generator("cuda").manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        kw = {}
+        if mup:
+            kw = dict(mup_width_mult=cfg.d_model / 256, mup_base=mup_base_model(model, cfg),
+                      moment_dtype="bfloat16")
+        tx = make_domain_sliced_optimizer(model, 1e-4, stacked_mask=stacked_param_mask(model, cfg),
+                                          num_domains=cfg.num_domains, **kw)
+        step = make_train_step(model.train(), tx, continuous=True,
+                               action_loss_weight=cfg.action_loss_weight)
+        batch = mar_batch(cfg, B, "cuda")
+        med, per_step, peak, _ = timed_steps(step, batch, f"d512 STMAR step, {label}",
+                                             train_launches(cfg.num_layers, "transpose"))
+        dtypes = {t.dtype for t in [*tx.m.values(), *tx.v.values()]}
+        matrices = sum(m != 1.0 for m in tx.lr_mult.values())
+        print(f"  [{label}] {n_params / 1e6:.1f}M params; moment dtypes {dtypes}; "
+              f"{matrices} matrix-like tensors at lr / {kw.get('mup_width_mult', 1)}",
+              flush=True)
+        require(dtypes == ({torch.bfloat16} if mup else {torch.float32}),
+                f"{label}: moment dtypes {dtypes}")
+        require((matrices > 0) == mup, f"{label}: {matrices} muP matrices")
+        profile_run(f"d512 STMAR step, {label}", lambda: step(batch, rng=99), med)
+        S_tot = cfg.S // cfg.patch_size**2 + cfg.action_token_size
+        set_launches(records, {("K1'", (B * cfg.T, S_tot, 8, 64)): per_step["K1'"] * TRAIN_STEPS,
+                               ("K2'", (B * cfg.T, S_tot, 8, 64)): per_step["K2'"] * TRAIN_STEPS,
+                               ("K3'", (B * S_tot, cfg.T, 8, 64)): per_step["K3'"] * TRAIN_STEPS,
+                               ("K4'", (B * S_tot, cfg.T, 8, 64)): per_step["K4'"] * TRAIN_STEPS},
+                     add=True)
+        runs[mup] = (med, peak, n_params)
+        del model, tx, step, batch
+    (m0, p0, n), (m1, p1, _) = runs[False], runs[True]
+    reckoned = n * 2 * 2 / 1e9
+    print(f"  muP + bf16 moments against fp32 moments: median step {m1:.4f} / {m0:.4f} s "
+          f"({m1 / m0:.3f} x); peak memory {p1 / 1e9:.2f} / {p0 / 1e9:.2f} GB, a fall of "
+          f"{(p0 - p1) / 1e9:.2f} GB against {reckoned:.2f} GB reckoned ({n / 1e6:.1f}M "
+          f"params x 2 moments x 2 B)", flush=True)
+    require(p1 < p0, "bf16 moments did not lower the peak")
+
+
+def stochastic_round_check():
+    """(b) stochastic_round on the card against the CPU, bit for bit, on
+    SR_ELEMENTS values across magnitudes with +-0, +-inf and NaNs."""
+    import torch
+
+    from hma_tpu_torch.train.lowp import stochastic_round
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(SR_ELEMENTS, generator=g) * torch.pow(
+        10.0, torch.randint(-30, 30, (SR_ELEMENTS,), generator=g).float())
+    x[:10] = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, -math.nan,
+                           3.4028235e38, -3.4028235e38, 1e-45, 1.0])
+    bits = torch.randint(-2**31, 2**31 - 1, (SR_ELEMENTS,), generator=g, dtype=torch.int32)
+    host = stochastic_round(x, bits)
+    card = stochastic_round(x.cuda(), bits.cuda()).cpu()
+    differ = (host.view(torch.int16) != card.view(torch.int16)).sum().item()
+    print(f"  stochastic_round, {SR_ELEMENTS} values with +-0, +-inf, NaN: card vs CPU "
+          f"{differ} bf16 patterns differ", flush=True)
+    require(differ == 0, "stochastic rounding differs between the card and the CPU")
+
+
+def lowp_resume(tmp):
+    """(b) train_multi --model_type continuous --mu_transfer
+    --adam_moment_dtype bfloat16 on the 2-layer d512 STMAR card: a run
+    resumed from step 2 ends where the straight one does, bit for bit."""
+    import torch
+
+    from hma_tpu_torch.train_multi import main as train_main
+
+    cfg = mar_flagship_config(1)
+    cfg.num_layers = 2
+    data = tmp / "domain_0_vae_max1000000_train"
+    write_latent_dataset(data, cfg, seed=6)
+    cfg.save_pretrained(str(tmp / "mar.json"))
+    (tmp / "split.yaml").write_text("domains: domain_0\n")
+
+    def run(out, *extra):
+        train_main(["--genie_config", str(tmp / "mar.json"), "--model_type", "continuous",
+                    "--output_dir", str(out), "--train_split", str(tmp / "split.yaml"),
+                    "--data_root", str(tmp), "--window_size", str(cfg.T),
+                    "--per_device_train_batch_size", "2", "--per_device_eval_batch_size", "2",
+                    "--max_train_steps", "4", "--overfit_first_batch",
+                    "--checkpointing_steps", "2", "--eval_every_n_steps", "4",
+                    "--max_eval_steps", "1", "--log_every", "1", "--num_warmup_steps", "1",
+                    "--learning_rate", "3e-4", "--mu_transfer", "--adam_moment_dtype",
+                    "bfloat16", *extra])
+
+    reset_counts()
+    run(tmp / "straight")
+    run(tmp / "resumed", "--resume_from_checkpoint", str(tmp / "straight" / "step_2"))
+    counts = read_counts()
+    differ, n = [], 0
+    for name in ("model.pt", "train_state.pt"):
+        a, b = (torch.load(tmp / d / "step_4" / name, map_location="cpu", weights_only=True)
+                for d in ("straight", "resumed"))
+        if name == "train_state.pt":
+            require(a["step"] == b["step"] == 4, "resume steps")
+            a, b = ({f"{k}.{p}": t for k in ("m", "v") for p, t in s["opt_state"][k].items()}
+                    for s in (a, b))
+            require(all(t.dtype == torch.bfloat16 for t in a.values()),
+                    "the checkpoint's moments are not bf16")
+        require(a.keys() == b.keys(), f"{name}: keys differ")
+        n += len(a)
+        differ += [k for k in a if not torch.equal(a[k], b[k])]
+    print(f"  train_multi --model_type continuous --mu_transfer --adam_moment_dtype "
+          f"bfloat16, 2 layers: resumed from step_2 vs straight at step_4, {n} tensors "
+          f"(bf16 moments among them), {len(differ)} differ; launches {counts}", flush=True)
+    require(not differ, f"resume is not bit for bit: {differ[:5]}")
+    require(all(counts[k] for k in TRAINING_KERNELS), f"train_multi missed a kernel: {counts}")
+
+
+def surface_phase(records, timings):
+    """Phase 22: cross-attention action injection, joint action prediction,
+    muP and bf16 moments through the kernels."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = joint_config(tmp)
+        joint_training(cfg, records, timings)
+        torch.cuda.empty_cache()
+        joint_exactness(joint_config(tmp, num_layers=2))
+        joint_rollout(cfg, records)
+        torch.cuda.empty_cache()
+        (tmp / "entry").mkdir()
+        joint_entry(tmp / "entry")
+    torch.cuda.empty_cache()
+    lowp_training(records)
+    stochastic_round_check()
+    with tempfile.TemporaryDirectory() as tmp:
+        lowp_resume(Path(tmp))
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 22)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 23)),
                    help="comma-separated phases to run (1 and 2 always run)")
     phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
@@ -4638,10 +5069,12 @@ def main(argv=None) -> int:
     print_hmma_counts(_build)
 
     records = []
+    timings = {}  # phase 6's median step, read beside phase 22's
     steps = [(3, "kernels vs plain versions", lambda: records.extend(kernel_phase())),
              (4, "rollouts, d256 card", lambda: main_path_phase(records)),
              (5, "entry point: generate", entry_point_phase),
-             (6, "training step, d256 card", lambda: training_phase(records)),
+             (6, "training step, d256 card",
+              lambda: timings.update({"d256 step": training_phase(records)})),
              (7, "gradient exactness, card vs CPU", exactness_phase),
              (8, "entry point: train_multi, then generate", train_entry_phase),
              (9, "rollouts, d512 STMAR card", lambda: mar_path_phase(records)),
@@ -4668,7 +5101,12 @@ def main(argv=None) -> int:
               lambda: tokenizer_training_phase(records)),
              (21, "the encode pipeline (encode_extern, make_svd_encoder, merge_shards, "
                   "resize_image); train_multi --use_native_loader; pixel-prompted simulators",
-              lambda: encode_pipeline_phase(records))]
+              lambda: encode_pipeline_phase(records)),
+             (22, "cross-attention action injection, joint action prediction, muP, bf16 "
+                  "Adam moments; entry points: train_multi --action_network "
+                  "concat+cross_attention --mu_transfer, then generate; train_multi "
+                  "--model_type continuous --mu_transfer --adam_moment_dtype bfloat16, "
+                  "resumed", lambda: surface_phase(records, timings))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()

@@ -4,12 +4,14 @@
 Every per-domain module holds parameters with a leading `num_domains` axis
 and an integer `domain_id` selects the row, so one set of modules serves
 all embodiments. Action vectors are zero-padded to `max_d_action`.
-`DomainCrossAttention` and `ActionReadout` are not ported yet.
+The cross-attention and the readout are plain PyTorch products, as their
+JAX counterparts are XLA einsums.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,21 +65,37 @@ def _var_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class DomainDense(nn.Module):
-    """Dense layer with a stacked (num_domains, in, out) kernel and
-    (num_domains, out) bias."""
+    """Dense layer with a stacked (num_domains, in, out) kernel and, with
+    `use_bias`, a (num_domains, out) bias.
+
+    `init_gain` g draws the kernel xavier-uniform(g) over flax's fans of a
+    stacked kernel (fan_in = num_domains * in, fan_out = num_domains * out);
+    None draws torch's Linear default, uniform of variance 1 / (3 fan_in)."""
 
     def __init__(self, num_domains: int, in_features: int, out_features: int,
-                 init_gain: float = 0.01, dtype=torch.bfloat16, device="cuda"):
+                 init_gain: Optional[float] = 0.01, use_bias: bool = True,
+                 dtype=torch.bfloat16, device="cuda"):
         super().__init__()
         self.init_gain = init_gain
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(num_domains, in_features,
                                                out_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(num_domains, out_features,
-                                             device=device))
+        self.bias = (nn.Parameter(torch.zeros(num_domains, out_features, device=device))
+                     if use_bias else None)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nd, fan_in, fan_out = self.kernel.shape
+        if self.init_gain is None:
+            bound = math.sqrt(1.0 / (nd * fan_in))
+        else:
+            bound = self.init_gain * math.sqrt(6.0 / (nd * fan_in + nd * fan_out))
+        self.kernel.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor, domain_id: int) -> torch.Tensor:
         y = x.to(self.dtype) @ take_domain(self.kernel, domain_id).to(self.dtype)
+        if self.bias is None:
+            return y
         return y + take_domain(self.bias, domain_id).to(self.dtype)
 
 
@@ -135,3 +153,82 @@ class DomainModulate(nn.Module):
         shift, scale = self.ada_fc2(h, domain_id).chunk(2, dim=-1)
         normed = _var_norm(x, 1e-6).to(self.dtype)
         return self.linear_out(normed * (1 + scale) + shift, domain_id)
+
+
+class DomainCrossAttention(nn.Module):
+    """Per-domain cross-attention action injection: q (B, N, C) attends to
+    kv (B, M, C). 8 heads whatever the trunk has (pass num_heads=8), scale
+    8 / head_dim, one shared per-domain fp32 qk LayerNorm (eps 1e-5), fp32
+    scores, probs cast to the compute dtype before p v, `proj` with a bias.
+
+    compat="reference" reproduces the reference's BasicCrossAttention
+    quirks exactly; q is then the (B, S, T, C) view:
+      - query row i = b*S + s reads action row i % B (its `.repeat` tiling);
+      - q, k, v stay (.., T, H, D) with no head transpose, so the softmax
+        runs over an (H, H) head table for each (b, s, t);
+      - the (H, T, D) output block is reinterpreted as (T, H*D).
+    """
+
+    def __init__(self, num_domains: int, num_heads: int, d_model: int,
+                 dtype=torch.bfloat16, compat: str = "fixed", device="cuda"):
+        super().__init__()
+        if compat not in ("fixed", "reference"):
+            raise ValueError(f"cross_attention_compat={compat!r}")
+        self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
+        self.dtype = dtype
+        self.compat = compat
+        # JAX multiplies by the scale cast to the compute dtype
+        self.scale = float(torch.tensor(8.0 / self.head_dim, dtype=dtype))
+        kw = dict(use_bias=False, dtype=dtype, device=device)
+        self.to_q = DomainDense(num_domains, d_model, d_model, **kw)
+        self.to_k = DomainDense(num_domains, d_model, d_model, **kw)
+        self.to_v = DomainDense(num_domains, d_model, d_model, **kw)
+        self.qk_ln_scale = nn.Parameter(torch.ones(num_domains, self.head_dim, device=device))
+        self.qk_ln_bias = nn.Parameter(torch.zeros(num_domains, self.head_dim, device=device))
+        self.proj = DomainDense(num_domains, d_model, d_model, dtype=dtype, device=device)
+
+    def _ln(self, u: torch.Tensor, domain_id: int) -> torch.Tensor:
+        y = _var_norm(u, 1e-5) * take_domain(self.qk_ln_scale, domain_id)
+        return (y + take_domain(self.qk_ln_bias, domain_id)).to(self.dtype)
+
+    def forward(self, q: torch.Tensor, kv: torch.Tensor, domain_id: int) -> torch.Tensor:
+        H, D = self.num_heads, self.head_dim
+        if self.compat == "reference":
+            B, S, T, C = q.shape
+            rows = (torch.arange(B, device=q.device)[:, None] * S
+                    + torch.arange(S, device=q.device)[None, :]) % B
+            kvp = kv[:, :T][rows]  # (B, S, T, C)
+            qh = self.to_q(q, domain_id).view(B, S, T, H, D)
+            kh = self.to_k(kvp, domain_id).view(B, S, T, H, D)
+            vh = self.to_v(kvp, domain_id).view(B, S, T, H, D)
+            qh = self._ln(qh, domain_id) * self.scale
+            kh = self._ln(kh, domain_id)
+            logits = torch.einsum("bsthd,bstgd->bsthg", qh.float(), kh.float())
+            probs = torch.softmax(logits, -1).to(self.dtype)
+            out = torch.einsum("bsthg,bstgd->bsthd", probs, vh)
+            out = out.transpose(2, 3).reshape(B, S, T, C)
+            return self.proj(out, domain_id)
+        B, N, C = q.shape
+        M = kv.shape[1]
+        qh = self._ln(self.to_q(q, domain_id).view(B, N, H, D), domain_id) * self.scale
+        kh = self._ln(self.to_k(kv, domain_id).view(B, M, H, D), domain_id)
+        vh = self.to_v(kv, domain_id).view(B, M, H, D)
+        logits = torch.einsum("bnhd,bmhd->bhnm", qh.float(), kh.float())
+        probs = torch.softmax(logits, -1).to(self.dtype)
+        out = torch.einsum("bhnm,bmhd->bnhd", probs, vh).reshape(B, N, C)
+        return self.proj(out, domain_id)
+
+
+class ActionReadout(nn.Module):
+    """Pooled action readout head: d_model -> max_d_action, per domain,
+    drawn with torch's Linear default init."""
+
+    def __init__(self, num_domains: int, d_model: int, max_d_action: int,
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        self.out = DomainDense(num_domains, d_model, max_d_action, init_gain=None,
+                               dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, domain_id: int) -> torch.Tensor:
+        return self.out(x, domain_id)

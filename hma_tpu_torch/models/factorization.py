@@ -50,8 +50,11 @@ class FactorizedEmbedding(nn.Module):
         self.num_factored_vocabs = num_factored_vocabs
         self.mask_token_id = mask_token_id
         self.dtype = dtype
+        # the owning model draws the tables (`_weight` skips nn.Embedding's
+        # own draw, whose normal_ on the meta device imports torch._dynamo)
         self.factored_embeds = nn.ModuleList(
-            nn.Embedding(factored_vocab_size, d_model, device=device)
+            nn.Embedding(factored_vocab_size, d_model,
+                         _weight=torch.empty(factored_vocab_size, d_model, device=device))
             for _ in range(num_factored_vocabs))
         self.mask_token_embed = nn.Parameter(
             torch.zeros(1, d_model, device=device))

@@ -74,6 +74,7 @@ class STMAR(nn.Module):
             use_mup=cfg.use_mup, mlp_ratio=cfg.mlp_ratio, mlp_bias=cfg.mlp_bias,
             mlp_drop=cfg.mlp_drop, action_processing=cfg.action_network,
             num_domains=cfg.num_domains, temporal_layout=temporal_layout,
+            cross_attention_compat=cfg.cross_attention_compat,
             dtype=dtype, device=device, remat=remat, remat_policy=remat_policy)
         self.pos_embed_TSC = nn.Parameter(torch.zeros(
             1, cfg.T, self.seq_len + cfg.action_token_size, cfg.d_model, device=device))
@@ -114,6 +115,8 @@ class STMAR(nn.Module):
         position embedding N(0, 0.02), domain tables xavier-uniform over
         flax's fans, the heads as `DiffLoss.reset_parameters`, zero biases
         and zero learned tokens."""
+        if self.pos_embed_TSC.is_meta:
+            return  # shapes only: nothing to draw
         for name, mod in self.named_modules():
             if name.split(".")[0] in ("diffloss", "action_diff_loss"):
                 continue  # the heads, below
@@ -127,9 +130,7 @@ class STMAR(nn.Module):
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, DomainDense):
-                nd, fan_in, fan_out = mod.kernel.shape
-                b = mod.init_gain * math.sqrt(6.0 / (nd * fan_in + nd * fan_out))
-                mod.kernel.uniform_(-b, b, generator=generator)
+                mod.reset_parameters(generator)
         self.diffusion_pos_embed_learned.normal_(0.0, 0.02, generator=generator)
         self.diffloss.reset_parameters(generator)
         if hasattr(self, "action_diff_loss"):

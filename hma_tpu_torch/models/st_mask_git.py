@@ -4,8 +4,13 @@
 Ported: `compute_logits` (full forward), the training loss (`forward`,
 `compute_video_loss_and_acc`, `smoothed_ce_floor`), `init_cache` and
 `frame_logits` (one frame against the temporal KV cache) and
-`window_logits` (F frames against it in one pass). The pooled action
-readout and action loss (`jointly_predict_actions`) are not ported yet.
+`window_logits` (F frames against it in one pass). On a
+`jointly_predict_actions` card the action tokens of dropped frames are the
+learned action mask tokens, a pooled readout of the action tokens predicts
+the actions (`action_pred`, fp32) and the loss adds their masked MSE
+(`action_loss`); `jointly_predict_states: false` drops the token logits.
+The action drop draws come from a generator or are handed in
+(`action_mask`), as the port hands in every draw.
 
 Parameters are fp32 and are cast to the compute `dtype` at use, as in the
 JAX model, so a converted `hma_tpu` tree (`convert.params_from_jax`) loads
@@ -24,6 +29,7 @@ from torch.nn import functional as F
 
 from hma_tpu_torch.config import GenieConfig
 from hma_tpu_torch.models.action_stems import (
+    ActionReadout,
     ActionStemMLP,
     DomainDense,
     build_action_stat_tables,
@@ -60,10 +66,6 @@ class STMaskGIT(nn.Module):
                  remat_policy: str = "full", temporal_layout: str = "transpose"):
         super().__init__()
         cfg = config
-        if cfg.jointly_predict_actions:
-            raise NotImplementedError(
-                "jointly_predict_actions needs ActionReadout, not ported yet "
-                "(ROADMAP.md Queue A)")
         self.config = cfg
         self.dtype = dtype
         self.mask_token_id = cfg.image_vocab_size
@@ -73,6 +75,7 @@ class STMaskGIT(nn.Module):
             use_mup=cfg.use_mup, mlp_ratio=cfg.mlp_ratio, mlp_bias=cfg.mlp_bias,
             mlp_drop=cfg.mlp_drop, action_processing=cfg.action_network,
             num_domains=cfg.num_domains, temporal_layout=temporal_layout,
+            cross_attention_compat=cfg.cross_attention_compat,
             dtype=dtype, device=device, remat=remat, remat_policy=remat_policy)
         self.pos_embed_TSC = nn.Parameter(torch.zeros(
             1, cfg.T, cfg.S + cfg.action_token_size, cfg.d_model, device=device))
@@ -95,14 +98,21 @@ class STMaskGIT(nn.Module):
                                  persistent=False)
             self.action_stem = ActionStemMLP(cfg.num_domains, cfg.max_d_action,
                                              cfg.d_model, dtype, device)
+            if cfg.jointly_predict_actions:
+                self.action_readout = ActionReadout(cfg.num_domains, cfg.d_model,
+                                                    cfg.max_d_action, dtype, device)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Random init with the JAX model's distributions: decoder linears
-        xavier-uniform(gain 0.1), readout torch's Linear default, domain
-        tables xavier-uniform over flax's fans (gain 0.01 stem / 0.1
-        modulate), embeddings N(0, 1), zero biases and zero learned tokens."""
+        xavier-uniform(gain 0.1), readouts torch's Linear default, domain
+        tables xavier-uniform over flax's fans (gain 0.01 stem and
+        cross-attention / 0.1 modulate), embeddings N(0, 1), zero biases and
+        zero learned tokens."""
+        if self.pos_embed_TSC.is_meta:
+            return  # shapes only: nothing to draw
+
         def uniform(p, bound):
             p.uniform_(-bound, bound, generator=generator)
 
@@ -116,9 +126,7 @@ class STMaskGIT(nn.Module):
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, DomainDense):
-                nd, fan_in, fan_out = mod.kernel.shape
-                uniform(mod.kernel, mod.init_gain * math.sqrt(
-                    6.0 / (nd * fan_in + nd * fan_out)))
+                mod.reset_parameters(generator)
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(generator=generator)
 
@@ -131,16 +139,26 @@ class STMaskGIT(nn.Module):
                                        self.action_mean_table, self.action_std_table)
         return self.action_stem(action_ids.to(self.dtype), domain_id)
 
+    def _mask_tokens(self, t0: int, F_: int, B: int) -> torch.Tensor:
+        """Frames [t0, t0+F)'s learned action mask tokens, (B, F, ats, C)."""
+        cfg = self.config
+        return self.action_mask_tokens[:, t0:t0 + F_].to(self.dtype).expand(
+            B, F_, cfg.action_token_size, cfg.d_model)
+
     def compute_logits(self, x_TS: torch.Tensor,
                        action_ids: Optional[torch.Tensor] = None,
-                       domain_id: int = 0, dropout=None):
+                       domain_id: int = 0, action_mask: Optional[torch.Tensor] = None,
+                       dropout=None):
         """Full-stack forward.
 
         x_TS: (B, T, S) int token ids (mask_token_id where masked);
         action_ids: (B, T, max_d_action) fp32 raw actions, or None;
+        action_mask: optional (B, T, 1, 1), 1 where a frame's action tokens
+        are replaced by the learned action mask tokens (joint cards);
         dropout: the trunk's MLP dropout (`STTransformerDecoder.forward`),
         None in every forward but training's.
-        Returns (logits (B, nv*fv, T, h, w) fp32, None).
+        Returns (logits (B, nv*fv, T, h, w) fp32 or None when the card does
+        not predict states, action_pred (B, T, max_d_action) fp32 or None).
         """
         cfg = self.config
         B, T, S = x_TS.shape
@@ -152,31 +170,70 @@ class STMaskGIT(nn.Module):
             if "concat" in cfg.action_network:
                 cond = action_emb[:, :T, None, :].expand(
                     B, T, cfg.action_token_size, cfg.d_model)
+                if action_mask is not None and cfg.jointly_predict_actions:
+                    m = action_mask[:, :T].to(self.dtype)
+                    cond = m * self._mask_tokens(0, T, B) + (1 - m) * cond
                 x_TSC = torch.cat([x_TSC, cond.to(self.dtype)], dim=2)
+        elif cfg.jointly_predict_actions:
+            x_TSC = torch.cat([x_TSC, self._mask_tokens(0, T, B)], dim=2)
         S_tot = x_TSC.shape[2]
         x_TSC = x_TSC + self.pos_embed_TSC[:, :T, :S_tot].to(self.dtype)
         x_TSC = self.decoder(x_TSC, action_emb, domain_id, dropout)
-        logits = self.out_x_proj(x_TSC[:, :, :S] * self.readout_scale).float()
-        return logits.reshape(B, T, h, w, -1).permute(0, 4, 1, 2, 3), None
+        action_pred = None
+        if cfg.jointly_predict_actions:
+            pooled = x_TSC[:, :, -cfg.action_token_size:].mean(dim=2)
+            action_pred = self.action_readout(pooled * self.readout_scale,
+                                              domain_id).float()
+        logits = None
+        if cfg.jointly_predict_states:
+            logits = self.out_x_proj(x_TSC[:, :, :S] * self.readout_scale).float()
+            logits = logits.reshape(B, T, h, w, -1).permute(0, 4, 1, 2, 3)
+        return logits, action_pred
 
     def forward(self, input_ids: torch.Tensor, labels: torch.Tensor,
                 action_ids: Optional[torch.Tensor] = None, domain_id: int = 0,
-                dropout=None):
-        """Masked-token factored cross-entropy and exact-token accuracy.
+                dropout=None, generator: Optional[torch.Generator] = None,
+                action_mask: Optional[torch.Tensor] = None):
+        """Masked-token factored cross-entropy and exact-token accuracy, and
+        on joint cards with actions the masked action MSE.
 
         input_ids/labels: (B, T, S) int ids (mask_token_id where masked in
         input_ids); the loss runs over the masked tokens of frames 1..T-1.
         dropout: the trunk's MLP dropout, handed in by the train step (a
         generator or per-block masks); None is `hma_tpu`'s deterministic
-        forward. Returns {"loss", "acc"}, 0-d fp32 tensors.
+        forward. On a joint card with actions, the frames whose actions are
+        dropped: `action_mask` (B, T, 1, 1) where given, else drawn from
+        `generator` as drop_ratio ~ U(B, 1, 1), mask = U(B, T, 1) < drop_ratio.
+        Returns {"loss", "acc"} (0 when the card does not predict states),
+        0-d fp32 tensors, and on joint cards with actions "action_loss" (the
+        MSE against the raw actions over the real action dims of the dropped
+        frames, divided by B T d_action) and "actions" (action_pred).
         """
+        cfg = self.config
         B, T, S = input_ids.shape
         h = w = math.isqrt(S)
-        logits_CTHW, _ = self.compute_logits(input_ids, action_ids, domain_id, dropout)
-        relevant = input_ids.reshape(B, T, h, w)[:, 1:] == self.mask_token_id
-        loss, acc = self.compute_video_loss_and_acc(
-            logits_CTHW, labels.reshape(B, T, h, w), relevant)
-        return {"loss": loss, "acc": acc}
+        dev = input_ids.device
+        if action_ids is not None and cfg.jointly_predict_actions and action_mask is None:
+            drop_ratio = torch.rand(B, 1, 1, generator=generator, device=dev)
+            action_mask = torch.rand(B, T, 1, generator=generator, device=dev) < drop_ratio
+            action_mask = action_mask[..., None].to(self.dtype)
+        logits_CTHW, action_pred = self.compute_logits(input_ids, action_ids, domain_id,
+                                                       action_mask, dropout)
+        if logits_CTHW is not None:
+            relevant = input_ids.reshape(B, T, h, w)[:, 1:] == self.mask_token_id
+            loss, acc = self.compute_video_loss_and_acc(
+                logits_CTHW, labels.reshape(B, T, h, w), relevant)
+            out = {"loss": loss, "acc": acc}
+        else:
+            out = {"loss": torch.zeros((), device=dev), "acc": torch.zeros((), device=dev)}
+        if action_pred is not None and action_ids is not None:
+            dim_valid = (torch.arange(cfg.max_d_action, device=dev)
+                         < cfg.d_actions[domain_id]).float()
+            err = (action_pred - action_ids) ** 2 * dim_valid
+            masked = err * action_mask[..., 0].float()
+            out["action_loss"] = masked.sum() / torch.clamp(B * T * dim_valid.sum(), min=1.0)
+            out["actions"] = action_pred
+        return out
 
     def compute_video_loss_and_acc(self, logits_CTHW: torch.Tensor,
                                    targets_THW: torch.Tensor,
@@ -202,11 +259,14 @@ class STMaskGIT(nn.Module):
         return (loss_THW * m).sum() / num, (acc_THW * m).sum() / num
 
     def init_cache(self, batch_size: int, with_actions: bool = True):
-        """Zeroed temporal KV caches, (L, B*S_tot, T, H, Dh) each."""
+        """Zeroed temporal KV caches, (L, B*S_tot, T, H, Dh) each; S_tot
+        counts the action tokens of a concat card given actions and of every
+        joint card (which appends its mask tokens without actions)."""
         cfg = self.config
         concat = (with_actions and "concat" in cfg.action_network
                   and cfg.num_domains > 0)
-        S_tot = cfg.S + (cfg.action_token_size if concat else 0)
+        tokens = concat or cfg.jointly_predict_actions
+        S_tot = cfg.S + (cfg.action_token_size if tokens else 0)
         shape = (cfg.num_layers, batch_size * S_tot, cfg.T, cfg.num_heads,
                  cfg.d_model // cfg.num_heads)
         device = self.pos_embed_TSC.device
@@ -233,6 +293,8 @@ class STMaskGIT(nn.Module):
                 cond = action_emb[:, t, None, :].expand(
                     B, cfg.action_token_size, cfg.d_model)
                 x_SC = torch.cat([x_SC, cond.to(self.dtype)], dim=1)
+        elif cfg.jointly_predict_actions:
+            x_SC = torch.cat([x_SC, self._mask_tokens(t, 1, B)[:, 0]], dim=1)
         S_tot = x_SC.shape[1]
         x_SC = x_SC + self.pos_embed_TSC[:, t, :S_tot].to(self.dtype)
         x_SC, k_cache, v_cache = self.decoder.frame_step(
@@ -261,6 +323,8 @@ class STMaskGIT(nn.Module):
                 cond = action_emb[:, t0:t0 + F_, None, :].expand(
                     B, F_, cfg.action_token_size, cfg.d_model)
                 x_FSC = torch.cat([x_FSC, cond.to(self.dtype)], dim=2)
+        elif cfg.jointly_predict_actions:
+            x_FSC = torch.cat([x_FSC, self._mask_tokens(t0, F_, B)], dim=2)
         S_tot = x_FSC.shape[2]
         x_FSC = x_FSC + self.pos_embed_TSC[:, t0:t0 + F_, :S_tot].to(self.dtype)
         x_FSC, k_cache, v_cache = self.decoder.window_step(

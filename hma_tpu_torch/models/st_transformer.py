@@ -13,6 +13,14 @@ K1' over all B*F frames, the temporal half through
 `SelfAttention.decode_window`). `scan_layers` is not ported (the converter
 unstacks a `layers_scan` tree).
 
+Action injection: "mlp" adds the frame's action embedding, "modulate" runs
+the adaLN `DomainModulate`, "cross_attention" runs `DomainCrossAttention`
+(its queries the block's tokens, its keys and values the action embedding of
+every frame). As in `hma_tpu`, cross-attention raises in the resident layout
+and, with `cross_attention_compat="reference"` (whose injection mixes
+timesteps), in the cached decode paths: that card rolls out by full
+recompute (`rollout.maskgit.generate_tokens_full`).
+
 MLP dropout (`mlp_drop`, after the GELU and after fc2, as `hma_tpu`'s Mlp)
 runs only in a training forward that is handed `dropout`: a generator, from
 which the decoder draws one seed per block before the block runs (the masks
@@ -33,7 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from hma_tpu_torch.models.action_stems import DomainModulate
+from hma_tpu_torch.models.action_stems import DomainCrossAttention, DomainModulate
 from hma_tpu_torch.models.attention import Dense, LayerNorm, SelfAttention
 
 
@@ -82,16 +90,12 @@ class STBlock(nn.Module):
                  proj_bias: bool = True, qk_norm: bool = True, use_mup: bool = True,
                  mlp_ratio: float = 4.0, mlp_bias: bool = True, mlp_drop: float = 0.0,
                  action_processing: str = "mlp", num_domains: int = 0,
-                 temporal_layout: str = "transpose", dtype=torch.bfloat16,
+                 temporal_layout: str = "transpose",
+                 cross_attention_compat: str = "fixed", dtype=torch.bfloat16,
                  device="cuda"):
         super().__init__()
         if temporal_layout not in ("transpose", "resident"):
             raise ValueError(f"temporal_layout={temporal_layout!r}")
-        # in either layout (hma_tpu's resident one raises for it too)
-        if num_domains > 0 and "cross_attention" in action_processing:
-            raise NotImplementedError(
-                "cross_attention action injection is not ported yet "
-                "(ROADMAP.md Queue A: DomainCrossAttention)")
         attn_kw = dict(num_heads=num_heads, d_model=d_model, qkv_bias=qkv_bias,
                        proj_bias=proj_bias, qk_norm=qk_norm, use_mup=use_mup,
                        dtype=dtype, device=device)
@@ -103,13 +107,37 @@ class STBlock(nn.Module):
         self.mlp = Mlp(d_model, mlp_ratio, mlp_bias, mlp_drop, dtype, device)
         self.norm1 = None if qk_norm else LayerNorm(d_model, device=device)
         self.norm2 = None if qk_norm else LayerNorm(d_model, device=device)
-        self.action_projector = (
-            DomainModulate(num_domains, d_model, dtype, device)
-            if num_domains > 0 and "modulate" in action_processing else None)
+        self.action_projector = None
+        # "mlp" takes precedence, then "cross_attention", as in hma_tpu
+        self.cross = (num_domains > 0 and "mlp" not in action_processing
+                      and "cross_attention" in action_processing)
+        if self.cross:
+            self.action_projector = DomainCrossAttention(
+                num_domains, 8, d_model, dtype, cross_attention_compat, device)
+        elif num_domains > 0 and "modulate" in action_processing:
+            self.action_projector = DomainModulate(num_domains, d_model, dtype, device)
         self.inject = num_domains > 0
 
     def _pre(self, norm: Optional[LayerNorm], x: torch.Tensor) -> torch.Tensor:
         return x if norm is None else norm(x).to(self.dtype)
+
+    def _refuse_cached_reference(self) -> None:
+        if self.cross and self.action_projector.compat == "reference":
+            raise NotImplementedError(
+                "cross_attention_compat='reference' mixes timesteps (the "
+                "scrambled head/time reshape of the reference's cross-attention), "
+                "so cached decode cannot be exact: use the full-recompute rollout "
+                "(rollout.maskgit.generate_tokens_full)")
+
+    def _cross(self, x: torch.Tensor, action_emb: torch.Tensor, domain_id: int,
+               live=None) -> torch.Tensor:
+        """Cross-attention injection of x (B, ..., C) against every frame of
+        action_emb (B, M, C), gated by `live` where given; each query row
+        attends on its own, so their order does not matter."""
+        B, C = x.shape[0], x.shape[-1]
+        out = self.action_projector(x.reshape(B, -1, C), action_emb, domain_id)
+        out = out.view(x.shape)
+        return x + (out if live is None else out * live)
 
     def _inject(self, x: torch.Tensor, cond: torch.Tensor, domain_id: int,
                 live=1.0) -> torch.Tensor:
@@ -133,11 +161,21 @@ class STBlock(nn.Module):
         if self.temporal_layout == "resident":
             x = x_SC.reshape(B, T, S, C)
             if action_emb is not None and self.inject:
+                if self.cross:
+                    raise NotImplementedError(
+                        f"temporal_layout='resident' with {self.action_processing}")
                 x = self._inject(x, action_emb[:, :T, None], domain_id)
             x = x + self.temporal_attn.temporal_resident(x)
             return x + self.mlp(self._pre(self.norm2, x), dropout)
         x_BSTC = x_SC.reshape(B, T, S, C).transpose(1, 2)  # (B, S, T, C)
-        if action_emb is not None and self.inject:
+        if action_emb is not None and self.cross:
+            if self.action_projector.compat == "reference":
+                # the reference's row pairing needs the (B, S, T, C) view
+                x_BSTC = x_BSTC + self.action_projector(x_BSTC, action_emb[:, :T],
+                                                        domain_id)
+            else:
+                x_BSTC = self._cross(x_BSTC, action_emb[:, :T], domain_id)
+        elif action_emb is not None and self.inject:
             x_BSTC = self._inject(x_BSTC, action_emb[:, None, :T], domain_id)
         x_TC = x_BSTC.reshape(B * S, T, C)
         x_TC = x_TC + self.temporal_attn(x_TC, causal=True)
@@ -159,7 +197,11 @@ class STBlock(nn.Module):
         if action_emb is not None and self.inject:
             live = (1.0 if action_live is None
                     else action_live[:, None, None].to(x_SC.dtype))
-            x_SC = self._inject(x_SC, action_emb[:, t:t + 1], domain_id, live)
+            if self.cross:
+                self._refuse_cached_reference()
+                x_SC = self._cross(x_SC, action_emb, domain_id, live)
+            else:
+                x_SC = self._inject(x_SC, action_emb[:, t:t + 1], domain_id, live)
         x_TC = x_SC.reshape(B * S, 1, C)
         attn_out, k_t, v_t = self.temporal_attn.decode_step(x_TC, k_cache, v_cache, t)
         x_TC = x_TC + attn_out
@@ -176,7 +218,10 @@ class STBlock(nn.Module):
         x_SC = x_FSC.reshape(B * F_, S, C)
         x_SC = x_SC + self.spatial_attn(self._pre(self.norm1, x_SC))
         x_FSC = x_SC.reshape(B, F_, S, C)
-        if action_emb is not None and self.inject:
+        if action_emb is not None and self.cross:
+            self._refuse_cached_reference()
+            x_FSC = self._cross(x_FSC, action_emb, domain_id)
+        elif action_emb is not None and self.inject:
             x_FSC = self._inject(x_FSC, action_emb[:, t0:t0 + F_, None], domain_id)
         x_TC = x_FSC.transpose(1, 2).reshape(B * S, F_, C)
         attn_out, k_w, v_w = self.temporal_attn.decode_window(x_TC, k_cache, v_cache, t0)

@@ -9,6 +9,12 @@ package's optax chain number for number:
     Adam counts, one clip over the dense grads plus the active domain's
     rows, and only row `d` of each domain-stacked table and of its moments
     updated;
+  - muP (`mup_width_mult`): the matrix-like parameters (`mup_matrix_mask`)
+    take lr / width_mult and weight decay * width_mult, the rest the plain
+    rule, in both optimizers;
+  - bf16 moments (`moment_dtype`, `train/lowp.py`): fp32 math, m and v
+    upcast on read and stochastically rounded on write, in both optimizers
+    (the sliced one rounds and writes row `d` only);
   - the NaN guard: a non-finite loss or grad norm zeroes the grads (the
     moments still decay and the counts still advance, which is why this
     is not `torch.optim.AdamW`) and applies no update;
@@ -19,14 +25,14 @@ package's optax chain number for number:
 
 Random draws: a step takes an integer `rng`, as `hma_tpu`'s takes a key.
 From it each (micro)batch gets two generators: one on the model's device
-for the diffusion timesteps and noise and the action-suffix start, and one
+for the diffusion timesteps and noise, STMAR's action-suffix start and
+STMaskGIT's action drop (joint cards), and one
 on the CPU for the trunk's dropout seeds (one per block, so drawing them
 never waits for the card). The tests hand the draws in instead (`draws`).
 
 Parameters, moments and grads are fp32 and are updated in place. The
 stacked tables' grads arrive full-size from autograd and are read at row
 `d`; JAX's `sliced_grads` lever (grads for one row only) is not ported.
-muP (`mup_width_mult`) and bf16 moments (`train/lowp.py`) raise.
 """
 
 from __future__ import annotations
@@ -40,6 +46,13 @@ from torch import nn
 
 from hma_tpu_torch.models.action_stems import DomainLayerNorm
 from hma_tpu_torch.models.attention import LayerNorm
+from hma_tpu_torch.train.lowp import (
+    DENSE_TAG,
+    SLICED_TAG,
+    MomentNoise,
+    adamw_lowp_,
+    resolve_moment_dtype,
+)
 
 Schedule = Callable[[int], float]
 
@@ -54,6 +67,24 @@ def custom_cosine_schedule(base_lr: float, warmup_steps: int, max_steps: int,
         remaining = max(max_steps - warmup_steps, 1)
         cos = (1 + math.cos(math.pi * (step - warmup_steps) / remaining)) / 2
         return base_lr * (cos * (1 - end_ratio) + end_ratio)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
+                                 decay_steps: int) -> Schedule:
+    """optax.warmup_cosine_decay_schedule(0, peak_value, warmup_steps,
+    decay_steps): linear from 0 to peak_value over warmup_steps, then
+    cosine decay to 0, reached at step decay_steps and held."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed warmup_steps "
+                         f"{warmup_steps}")
+    span = decay_steps - warmup_steps
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return peak_value * max(step, 0) / warmup_steps
+        return peak_value * 0.5 * (1 + math.cos(math.pi * min(step - warmup_steps, span) / span))
 
     return schedule
 
@@ -82,13 +113,21 @@ def domain_stacked_mask(model: nn.Module, other: nn.Module) -> dict[str, bool]:
     return {n: p.shape != shapes[n] for n, p in model.named_parameters()}
 
 
-def _not_ported(mup_width_mult, moment_dtype) -> None:
-    if mup_width_mult not in (None, 1.0):
-        raise NotImplementedError("muP (mup_width_mult) is not ported yet "
-                                  "(ROADMAP.md Queue A)")
-    if moment_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError("low-precision Adam moments (train/lowp.py) "
-                                  "are not ported yet (ROADMAP.md Queue A)")
+def mup_matrix_mask(model: nn.Module, base: Optional[nn.Module] = None) -> dict[str, bool]:
+    """{param name: matrix-like under muP?}: the parameters whose Adam lr
+    scales by 1 / width_mult (the reference pins base width 256).
+
+    With `base`, the same model at another width (built on device="meta"),
+    mup's infshape rule: a dim is infinite iff it differs from the base's,
+    and a parameter is matrix-like iff at least 2 of its dims are. Without,
+    `hma_tpu`'s name rule: every parameter of 2 or more dims but biases and
+    the token embedding."""
+    if base is not None:
+        shapes = {n: p.shape for n, p in base.named_parameters()}
+        return {n: sum(a != b for a, b in zip(p.shape, shapes[n])) >= 2
+                for n, p in model.named_parameters()}
+    return {n: p.ndim >= 2 and n.rsplit(".", 1)[-1] != "bias" and "token_embed" not in n
+            for n, p in model.named_parameters()}
 
 
 def _lr_at(learning_rate: Union[float, Schedule], count: int) -> float:
@@ -109,23 +148,54 @@ def _adamw_(p, g, m, v, count: int, lr: float, wd: float, b1: float, b2: float,
 
 class AdamW:
     """optax.chain(clip_by_global_norm, adamw(mask=weight decay mask)) over
-    named fp32 parameters, with the train step's NaN guard."""
+    named fp32 parameters, with the train step's NaN guard.
+
+    With `mup_width_mult` and a `matrix` mask, the matrix-like parameters
+    take lr / width_mult and weight decay * width_mult (decayed whatever
+    `decay` says), as `hma_tpu`'s optax.multi_transform partition does.
+    With `moment_dtype` bf16, m and v are stored in bf16 and written with
+    stochastic rounding (`lowp.adamw_lowp_`)."""
 
     def __init__(self, params: dict[str, torch.Tensor],
                  learning_rate: Union[float, Schedule], weight_decay: float,
                  beta1: float, beta2: float, eps: float, max_grad_norm: float,
-                 decay: dict[str, bool]):
-        self.lr, self.wd = learning_rate, weight_decay
+                 decay: dict[str, bool], mup_width_mult: Optional[float] = None,
+                 matrix: Optional[dict[str, bool]] = None, moment_dtype=None):
+        self.lr = learning_rate
         self.b1, self.b2, self.eps = beta1, beta2, eps
         self.max_grad_norm = max_grad_norm
-        self.decay = decay
-        self.m = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.v = {n: torch.zeros_like(p) for n, p in params.items()}
+        mup = mup_width_mult not in (None, 1.0)
+        self.lr_mult = {n: 1.0 / mup_width_mult if mup and matrix[n] else 1.0
+                        for n in params}
+        self.wd = {n: (weight_decay * mup_width_mult if mup and matrix[n]
+                       else (weight_decay if decay[n] else 0.0)) for n in params}
+        self.moment_dtype = resolve_moment_dtype(moment_dtype) or torch.float32
+        self.m = {n: torch.zeros_like(p, dtype=self.moment_dtype) for n, p in params.items()}
+        self.v = {n: torch.zeros_like(p, dtype=self.moment_dtype) for n, p in params.items()}
         self.count = 0  # updates so far: Adam's count and the schedule's
 
+    def _update(self, n: str, p, g, m, v, count: int, lr: float, ok_f,
+                noise: Optional[dict], draw: Optional[MomentNoise], leaf: int) -> None:
+        """Adam update of p (one parameter or its row) with leaf n's lr and
+        decay; low-precision moments take leaf n's bits from `noise` where
+        it is given, else from `draw`."""
+        args = (p, g, m, v, count, lr * self.lr_mult[n], self.wd[n], self.b1, self.b2,
+                self.eps, ok_f)
+        if m.dtype == torch.float32:
+            _adamw_(*args)
+        elif noise is not None:
+            adamw_lowp_(*args, *noise[n])
+        else:
+            adamw_lowp_(*args, draw.bits(leaf, 0, g.shape), draw.bits(leaf, 1, g.shape))
+
+    def _draw(self, tag: int, count: int, device) -> Optional[MomentNoise]:
+        return None if self.moment_dtype == torch.float32 else MomentNoise(tag, count, device)
+
     def step(self, params: dict, grads: dict, domain_id: int,
-             ok_loss: torch.Tensor) -> torch.Tensor:
-        """Update params in place; returns the grad norm (before the clip)."""
+             ok_loss: torch.Tensor, noise: Optional[dict] = None) -> torch.Tensor:
+        """Update params in place; returns the grad norm (before the clip).
+        noise: optional {name: (m bits, v bits)}, the stochastic rounding's
+        bits of a low-precision update, in place of the drawn ones."""
         g_norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g) for g in grads.values()]))
         ok = ok_loss & torch.isfinite(g_norm)
@@ -137,11 +207,11 @@ class AdamW:
         ok_f = ok.float()
         lr = _lr_at(self.lr, self.count)
         self.count += 1
-        for n, p in params.items():
+        draw = self._draw(DENSE_TAG, self.count, g_norm.device)
+        for i, (n, p) in enumerate(params.items()):
             g = torch.where(ok, grads[n], 0.0) * scale
-            _adamw_(p.data, g, self.m[n], self.v[n], self.count, lr,
-                    self.wd if self.decay[n] else 0.0, self.b1, self.b2,
-                    self.eps, ok_f)
+            self._update(n, p.data, g, self.m[n], self.v[n], self.count, lr, ok_f,
+                         noise, draw, i)
         return g_norm
 
     def state_dict(self) -> dict:
@@ -164,14 +234,17 @@ class DomainSlicedAdamW(AdamW):
 
     def __init__(self, params, learning_rate, weight_decay, beta1, beta2, eps,
                  max_grad_norm, decay, *, stacked: dict[str, bool],
-                 num_domains: int):
+                 num_domains: int, **kw):
         super().__init__(params, learning_rate, weight_decay, beta1, beta2, eps,
-                         max_grad_norm, decay)
+                         max_grad_norm, decay, **kw)
         self.stacked = stacked
         self.domain_count = [0] * num_domains
 
     def step(self, params: dict, grads: dict, domain_id: int,
-             ok_loss: torch.Tensor) -> torch.Tensor:
+             ok_loss: torch.Tensor, noise: Optional[dict] = None) -> torch.Tensor:
+        """As `AdamW.step`; a stacked table's bits are its row's. The dense
+        leaves' bits are drawn from the global count after this update, the
+        rows' from it before, as `hma_tpu` keys them."""
         d = int(domain_id)
         rows = {n: (g[d] if self.stacked[n] else g) for n, g in grads.items()}
         g_norm = torch.linalg.vector_norm(torch.stack(
@@ -181,18 +254,18 @@ class DomainSlicedAdamW(AdamW):
                             self.max_grad_norm / torch.clamp(g_norm, min=1e-20))
         ok_f = ok.float()
         lr = _lr_at(self.lr, self.count)
+        rows_draw = self._draw(SLICED_TAG, self.count, g_norm.device)
         self.count += 1
         self.domain_count[d] += 1
-        for n, p in params.items():
+        dense_draw = self._draw(DENSE_TAG, self.count, g_norm.device)
+        for i, (n, p) in enumerate(params.items()):
             g = torch.where(ok, rows[n] * scale, 0.0)
-            wd = self.wd if self.decay[n] else 0.0
             if self.stacked[n]:
-                _adamw_(p.data[d], g, self.m[n][d], self.v[n][d],
-                        self.domain_count[d], lr, wd, self.b1, self.b2, self.eps,
-                        ok_f)
+                self._update(n, p.data[d], g, self.m[n][d], self.v[n][d],
+                             self.domain_count[d], lr, ok_f, noise, rows_draw, i)
             else:
-                _adamw_(p.data, g, self.m[n], self.v[n], self.count, lr, wd,
-                        self.b1, self.b2, self.eps, ok_f)
+                self._update(n, p.data, g, self.m[n], self.v[n], self.count, lr, ok_f,
+                             noise, dense_draw, i)
         return g_norm
 
     def state_dict(self) -> dict:
@@ -203,15 +276,24 @@ class DomainSlicedAdamW(AdamW):
         self.domain_count = [int(c) for c in state["domain_count"]]
 
 
+def _mup_kw(model: nn.Module, mup_width_mult, mup_base, moment_dtype) -> dict:
+    matrix = (mup_matrix_mask(model, mup_base)
+              if mup_width_mult not in (None, 1.0) else None)
+    return dict(mup_width_mult=mup_width_mult, matrix=matrix, moment_dtype=moment_dtype)
+
+
 def make_optimizer(model: nn.Module, learning_rate, weight_decay: float = 0.01,
                    beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
                    max_grad_norm: float = 1.0,
                    mup_width_mult: Optional[float] = None,
+                   mup_base: Optional[nn.Module] = None,
                    moment_dtype=None) -> AdamW:
-    """Global-norm clip, then AdamW with the weight-decay mask."""
-    _not_ported(mup_width_mult, moment_dtype)
+    """Global-norm clip, then AdamW with the weight-decay mask; muP with
+    `mup_width_mult` (= d_model / 256; `mup_base` the base-width model for
+    `mup_matrix_mask`), bf16 moments with `moment_dtype`."""
     return AdamW(dict(model.named_parameters()), learning_rate, weight_decay,
-                 beta1, beta2, eps, max_grad_norm, weight_decay_mask(model))
+                 beta1, beta2, eps, max_grad_norm, weight_decay_mask(model),
+                 **_mup_kw(model, mup_width_mult, mup_base, moment_dtype))
 
 
 def make_domain_sliced_optimizer(model: nn.Module, learning_rate,
@@ -220,13 +302,15 @@ def make_domain_sliced_optimizer(model: nn.Module, learning_rate,
                                  max_grad_norm: float = 1.0, *,
                                  stacked_mask: dict[str, bool], num_domains: int,
                                  mup_width_mult: Optional[float] = None,
+                                 mup_base: Optional[nn.Module] = None,
                                  moment_dtype=None) -> DomainSlicedAdamW:
-    """The domain-sliced AdamW; `stacked_mask` from `domain_stacked_mask`."""
-    _not_ported(mup_width_mult, moment_dtype)
+    """The domain-sliced AdamW; `stacked_mask` from `domain_stacked_mask`;
+    muP and moments as `make_optimizer`."""
     return DomainSlicedAdamW(dict(model.named_parameters()), learning_rate,
                              weight_decay, beta1, beta2, eps, max_grad_norm,
                              weight_decay_mask(model), stacked=stacked_mask,
-                             num_domains=num_domains)
+                             num_domains=num_domains,
+                             **_mup_kw(model, mup_width_mult, mup_base, moment_dtype))
 
 
 def generators(rng: int, part: int, device) -> tuple:
@@ -246,7 +330,8 @@ def _loss(model: nn.Module, batch: dict, continuous: bool, action_loss_weight: f
         out = model(*args, batch["masked_tokens_indicator"], generator=generator,
                     dropout=dropout, draws=draws)
     else:
-        out = model(*args, dropout=dropout)
+        out = model(*args, dropout=dropout, generator=generator,
+                    action_mask=(draws or {}).get("action_mask"))
     loss = out["loss"]
     metrics = {"loss": out["loss"].detach(), "acc": out["acc"].detach()}
     if "action_loss" in out:
@@ -267,8 +352,8 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
     microbatch > 0 the batch runs in B // microbatch chunks whose grads (and
     metrics) are averaged. The forward trains (MLP dropout on); its draws
     come from `generators(rng, i)` for chunk i, or, with no microbatches,
-    from `draws` where given (the model's `draws`, plus "dropout": one
-    `BlockDropout` per block). Metrics: 0-d tensors loss, acc (and
+    from `draws` where given (STMAR's `draws` or STMaskGIT's "action_mask",
+    plus "dropout": one `BlockDropout` per block). Metrics: 0-d tensors loss, acc (and
     action_loss on joint cards), grad_norm and skipped (1.0 when the NaN
     guard dropped the update).
     """
@@ -279,8 +364,7 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
         gen, dropout = generators(rng, part, device)
         draws = dict(draws or {})
         dropout = draws.pop("dropout", dropout)
-        return _loss(model, chunk, continuous, action_loss_weight, gen, dropout,
-                     draws if continuous else None)
+        return _loss(model, chunk, continuous, action_loss_weight, gen, dropout, draws)
 
     def train_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
         for p in params.values():
@@ -322,15 +406,15 @@ def make_eval_step(model: nn.Module, *, continuous: bool = False,
                    action_loss_weight: float = 0.5) -> Callable:
     """eval_step(batch, rng=0, draws=None) -> {loss, acc, perplexity} (and
     action_loss on joint cards): teacher-forced, deterministic (no dropout),
-    no grad; the continuous family's diffusion draws come from
-    `generators(rng, 0)` (so they differ between eval batches) or `draws`."""
+    no grad; the diffusion draws and the action drop of joint cards come
+    from `generators(rng, 0)` (so they differ between eval batches) or
+    `draws`."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
         gen = generators(rng, 0, device)[0]
-        _, metrics = _loss(model, batch, continuous, action_loss_weight, gen, None,
-                           draws if continuous else None)
+        _, metrics = _loss(model, batch, continuous, action_loss_weight, gen, None, draws)
         return {**metrics, "perplexity": torch.exp(metrics["loss"])}
 
     return eval_step

@@ -15,9 +15,15 @@ decodes prediction and ground truth to pixels and reports their PSNR, and
 with `--lpips_weights` (an AlexNet LPIPS state dict) their LPIPS. With
 `--use_native_loader` the batches come from the C++ loader
 (`data/native_loader.py`), one per domain, resumed bit for bit.
+`--mu_transfer` trains with muP (width mult d_model / 256, the matrix-like
+parameters found against the card at half its head dim), and
+`--adam_moment_dtype bfloat16` keeps Adam's moments in bf16 with stochastic
+rounding; checkpoints hold them in bf16. `--lr_scheduler_type` other than
+"custom_cosine" gives optax's warmup cosine decay to 0, as in `hma_tpu`
+(whatever the name says: "linear" too).
 
-Not ported (they raise): the mesh and multi-host, muP, bf16 moments, JAX's
-`sliced_grads` lever and schedules other than "custom_cosine".
+Not ported (they raise): the mesh and multi-host, JAX's `sliced_grads`
+lever and wandb.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from hma_tpu_torch.train.step import (
     make_optimizer,
     make_train_step,
     scale_lr_by_batch,
+    warmup_cosine_decay_schedule,
 )
 from hma_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -126,11 +133,7 @@ def _refuse_unported(args: TrainArgs) -> None:
     unported = {
         "a device mesh (--dp/--fsdp/--tp/--sp)":
             (args.dp or 1) * args.fsdp * args.tp * args.sp > 1,
-        "--mu_transfer (muP)": args.mu_transfer,
-        "--adam_moment_dtype bfloat16": args.adam_moment_dtype != "float32",
         "--sliced_grads on": args.sliced_grads == "on",
-        f"--lr_scheduler_type {args.lr_scheduler_type}":
-            args.lr_scheduler_type != "custom_cosine",
         "--report_to wandb": args.report_to == "wandb",
     }
     asked = [k for k, v in unported.items() if v]
@@ -319,6 +322,15 @@ def stacked_param_mask(model, config: GenieConfig) -> dict[str, bool]:
     return domain_stacked_mask(model, type(model)(alt, dtype=model.dtype, device="meta"))
 
 
+def mup_base_model(model, config: GenieConfig):
+    """The same model (its own class) at mup's base shapes, built on the
+    meta device: the card with its head dim halved, as `hma_tpu`'s trainer
+    builds it for `mup_matrix_mask`."""
+    head_dim = config.d_model // config.num_heads
+    base = dataclasses.replace(config, d_model=config.num_heads * max(head_dim // 2, 1))
+    return type(model)(base, dtype=model.dtype, device="meta")
+
+
 def run_training(args: TrainArgs) -> dict:
     """Main loop; returns the metrics of the last log point."""
     _refuse_unported(args)
@@ -346,7 +358,10 @@ def run_training(args: TrainArgs) -> dict:
                                     seed=args.seed)
     steps_per_epoch = max(len(sampler), 1)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
-    schedule = custom_cosine_schedule(lr, args.num_warmup_steps, max_steps)
+    if args.lr_scheduler_type == "custom_cosine":
+        schedule = custom_cosine_schedule(lr, args.num_warmup_steps, max_steps)
+    else:
+        schedule = warmup_cosine_decay_schedule(lr, args.num_warmup_steps, max_steps)
     assembler = BatchAssembler(train_sets, config, args.seed, device,
                                np.random.default_rng(args.seed), not continuous)
     val_assembler = BatchAssembler(val_sets, config, args.seed, device,
@@ -356,9 +371,13 @@ def run_training(args: TrainArgs) -> dict:
         config, dtype=dtype, device=device,
         generator=torch.Generator(device).manual_seed(args.seed),
         remat=args.grad_checkpointing)
+    mup_mult = config.d_model / 256.0 if args.mu_transfer else None
     opt_kw = dict(learning_rate=schedule, weight_decay=args.weight_decay,
                   beta1=args.adam_beta_1, beta2=args.adam_beta_2, eps=args.adam_eps,
-                  max_grad_norm=args.max_grad_norm)
+                  max_grad_norm=args.max_grad_norm, mup_width_mult=mup_mult,
+                  mup_base=(mup_base_model(model, config)
+                            if mup_mult not in (None, 1.0) else None),
+                  moment_dtype=args.adam_moment_dtype)
     if args.domain_sliced_adam and config.num_domains > 1:
         tx = make_domain_sliced_optimizer(
             model, **opt_kw, stacked_mask=stacked_param_mask(model, config),

@@ -5,8 +5,11 @@ card; raises if there is none). Execution is the single-device trainer in
 `hma_tpu_torch/train/trainer.py`, for both families (`--model_type
 discrete` or `continuous`); `--tokenizer_checkpoint` / `--lpips_weights`
 add the discrete rollout eval's pixel PSNR and LPIPS; `--use_native_loader`
-feeds the batches from the C++ loader; flags for what it does not port yet
-(a mesh, muP, bf16 moments) raise.
+feeds the batches from the C++ loader; `--mu_transfer` trains with muP,
+`--adam_moment_dtype bfloat16` keeps Adam's moments in bf16 (stochastic
+rounding), `--action_network` takes any injection (`concat+cross_attention`
+among them). Flags for what it does not port yet (a mesh, `--sliced_grads
+on`, wandb) raise.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 `save_checkpoint(output_dir, tag, ...)` writes `output_dir/<tag>/` holding
 `config.json` (the model card, in the `hma_tpu` format), `model.pt` (a
 `torch.save`d fp32 state_dict) and, for a training checkpoint,
-`train_state.pt` (the optimizer state and the step). `step_<n>` and
+`train_state.pt` (the optimizer state, its moments in their own dtype, bf16
+under `--adam_moment_dtype bfloat16`, and the step). `step_<n>` and
 `epoch_<n>` directories past `keep_last` are pruned, oldest first; no
 other directory (`final_checkpt`, `epoch_1_pinned`) ever is.
 `load_checkpoint` builds the model for rollout from a checkpoint directory

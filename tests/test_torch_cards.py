@@ -17,6 +17,7 @@ tests/test_torch_train_step.py (per tensor, max |got - want| <= rel *
 max |want| + 1e-8: params 1e-5, first moments 2e-5; loss 1e-5 relative).
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -112,8 +113,9 @@ def d61_pair():
 def test_d61_card_logits_match_jax(d61_pair):
     jm, params, tm, tokens, actions = d61_pair
     assert tm.decoder.layers[0].spatial_attn.head_dim == 61
-    want, _ = jm.apply(params, tokens, actions, jnp.asarray(0, jnp.int32),
-                       method=JaxSTMaskGIT.compute_logits)
+    # jitted: eager flax runs the model op by op, several times slower here
+    want, _ = jax.jit(functools.partial(jm.apply, method=JaxSTMaskGIT.compute_logits))(
+        params, tokens, actions, jnp.asarray(0, jnp.int32))
     with torch.no_grad():
         got, _ = tm.compute_logits(to_torch(tokens), to_torch(actions), 0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)

@@ -2,6 +2,8 @@
 the JAX draws handed in: plain and domain-stacked head, premodulated and
 direct, with and without classifier-free guidance."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,20 +20,32 @@ C, Z, DEPTH, WIDTH, K, N = 5, 12, 2, 128, 10, 6
 TOL = dict(atol=1e-5, rtol=1e-4)  # the JAX kernel test's own limits
 
 
-def build(num_domains: int, seed: int = 0):
-    """(jax head, params, port head, z (N, Z) numpy), every parameter
-    perturbed: the adaLN and final linears are zero at init."""
-    kw = dict(target_channels=C, z_channels=Z, depth=DEPTH, width=WIDTH,
-              num_sampling_steps=str(K), num_domains=num_domains)
-    jm = JaxDiffLoss(**kw, dtype=jnp.float32, loop_kernel=False)
+def _kw(num_domains: int) -> dict:
+    return dict(target_channels=C, z_channels=Z, depth=DEPTH, width=WIDTH,
+                num_sampling_steps=str(K), num_domains=num_domains)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_head(num_domains: int, seed: int):
+    """(jax head, params, z) of `build`, made once a (num_domains, seed):
+    the init is jitted (eager flax runs it op by op)."""
+    jm = JaxDiffLoss(**_kw(num_domains), dtype=jnp.float32, loop_kernel=False)
     rng = np.random.default_rng(seed)
     target = rng.normal(size=(N, C)).astype(np.float32)
     z = rng.normal(size=(N, Z)).astype(np.float32)
     dom = None if num_domains == 0 else jnp.asarray(1, jnp.int32)
-    params = jm.init({"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)},
-                     target, z, None, dom, method=JaxDiffLoss.loss)
-    params = perturbed(params, rng, 0.05)
-    tm = DiffLoss(**kw, dtype=torch.float32, device="cpu")
+    params = jax.jit(lambda k, kd: jm.init({"params": k, "diffusion": kd}, target, z, None,
+                                           dom, method=JaxDiffLoss.loss))(
+        jax.random.PRNGKey(0), jax.random.PRNGKey(1))
+    return jm, perturbed(params, rng, 0.05), z
+
+
+def build(num_domains: int, seed: int = 0):
+    """(jax head, params, port head, z (N, Z) numpy), every parameter
+    perturbed: the adaLN and final linears are zero at init. The port head
+    is new at each call."""
+    jm, params, z = _jax_head(num_domains, seed)
+    tm = DiffLoss(**_kw(num_domains), dtype=torch.float32, device="cpu")
     tm.load_state_dict(params_from_jax(params, None))
     return jm, params, tm, z
 

@@ -2,6 +2,9 @@
 the full forward, the KV-cached per-frame forward, the action_live gate,
 patchify, and the conversion of loop- and scan-layout trees."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,8 +45,9 @@ def test_compute_latents_match_jax(pair, with_actions):
     jm, params, tm, lat, actions = pair
     p = jm.config.patch_size
     acts = actions if with_actions else None
-    want, _ = jm.apply(params, jax_patchify(jnp.asarray(lat), p), acts, DOM,
-                       method=JaxSTMAR.compute_latents)
+    # jitted: eager flax runs the model op by op, several times slower here
+    want, _ = jax.jit(functools.partial(jm.apply, method=JaxSTMAR.compute_latents))(
+        params, jax_patchify(jnp.asarray(lat), p), acts, DOM)
     got, pooled = tm.compute_latents(patchify(to_torch(lat), p),
                                      None if acts is None else to_torch(acts), 0)
     assert pooled is None and got.dtype == torch.float32
@@ -62,9 +66,9 @@ def test_frame_latents_match_jax_and_full_forward(pair):
     jk, jv = jm.apply(params, B, method=JaxSTMAR.init_cache)
     k, v = tm.init_cache(B)
     assert tuple(k.shape) == jk.shape
+    frame = jax.jit(functools.partial(jm.apply, method=JaxSTMAR.frame_latents))
     for t in range(cfg.T):
-        want, _, jk, jv = jm.apply(params, jp[:, t], jnp.asarray(t), jk, jv, actions, DOM,
-                                   method=JaxSTMAR.frame_latents)
+        want, _, jk, jv = frame(params, jp[:, t], jnp.asarray(t), jk, jv, actions, DOM)
         # a pass that must leave the caches untouched, then the real one
         before = k.clone()
         with torch.no_grad():
@@ -90,8 +94,8 @@ def test_joint_card_latents_and_action_live_match_jax(joint_pair):
     acts = to_torch(actions)
     amask = np.zeros((B, cfg.T, 1, 1), np.float32)
     amask[0, 2:] = 1.0
-    want, want_a = jm.apply(params, jp, actions, DOM, jnp.asarray(amask),
-                            method=JaxSTMAR.compute_latents)
+    want, want_a = jax.jit(functools.partial(jm.apply, method=JaxSTMAR.compute_latents))(
+        params, jp, actions, DOM, jnp.asarray(amask))
     with torch.no_grad():
         got, got_a = tm.compute_latents(tp, acts, 0, torch.from_numpy(amask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -102,10 +106,10 @@ def test_joint_card_latents_and_action_live_match_jax(joint_pair):
     k, v = tm.init_cache(B)
     k0, v0 = tm.init_cache(B, with_actions=False)
     assert k0.shape == k.shape  # the joint card always carries action tokens
+    frame = jax.jit(functools.partial(jm.apply, method=JaxSTMAR.frame_latents))
     for t in range(2):
-        want, want_a, jk, jv = jm.apply(
-            params, jp[:, t], jnp.asarray(t), jk, jv, actions, DOM,
-            action_live=jnp.asarray(live), method=JaxSTMAR.frame_latents)
+        want, want_a, jk, jv = frame(params, jp[:, t], jnp.asarray(t), jk, jv, actions, DOM,
+                                     action_live=jnp.asarray(live))
         with torch.no_grad():
             got, got_a, k, v = tm.frame_latents(tp[:, t], t, k, v, acts, 0,
                                                 action_live=torch.from_numpy(live))

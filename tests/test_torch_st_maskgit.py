@@ -27,8 +27,9 @@ def test_compute_logits_matches_jax(qk_norm, action_network):
     jm, params, tm, tokens, actions = build_pair(qk_norm,
                                                  action_network=action_network)
     dom = jnp.asarray(0, jnp.int32)
-    want, _ = jm.apply(params, tokens, actions, dom,
-                       method=JaxSTMaskGIT.compute_logits)
+    # jitted: eager flax runs the model op by op, several times slower here
+    want, _ = jax.jit(functools.partial(jm.apply, method=JaxSTMaskGIT.compute_logits))(
+        params, tokens, actions, dom)
     with torch.no_grad():
         got, pred = tm.compute_logits(to_torch(tokens), to_torch(actions), 0)
     assert pred is None

@@ -190,9 +190,16 @@ def test_nan_streak_aborts_and_unported_flags_raise(synth_env, monkeypatch):
     monkeypatch.setattr(trainer, "make_train_step", always_skipped)
     with pytest.raises(RuntimeError, match="NaN guard"):
         trainer.run_training(args)
-    for flag in (["--mu_transfer"], ["--adam_moment_dtype", "bfloat16"],
-                 ["--lr_scheduler_type", "linear"],
-                 ["--fsdp", "2"], ["--sliced_grads", "on"]):
+    # muP, bf16 moments and the other schedule are ported: they train
+    # (tests/test_torch_lowp_mup.py holds them to hma_tpu's)
+    out = root / "lowp"
+    train_main(_train_argv(root, data, out, "--max_train_steps", "3", "--mu_transfer",
+                           "--adam_moment_dtype", "bfloat16",
+                           "--lr_scheduler_type", "linear"))
+    state = torch.load(out / "final_checkpt" / "train_state.pt", weights_only=True)
+    assert state["step"] == 3
+    assert all(m.dtype == torch.bfloat16 for m in state["opt_state"]["m"].values())
+    for flag in (["--fsdp", "2"], ["--sliced_grads", "on"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_main(_train_argv(root, data, root / "no", *flag))
 

@@ -282,7 +282,8 @@ class _FiniteLossNaNGrad(nn.Module):
         self.w = nn.Parameter(torch.ones(3, 4))
         self.b = nn.Parameter(torch.ones(4))
 
-    def forward(self, input_ids, labels, action_ids=None, domain_id=0, dropout=None):
+    def forward(self, input_ids, labels, action_ids=None, domain_id=0, dropout=None,
+                generator=None, action_mask=None):
         loss = torch.sqrt(self.w[domain_id] * 0.0).sum() + (self.b * 0).sum() + 1.0
         return {"loss": loss, "acc": torch.zeros(())}
 
@@ -354,9 +355,13 @@ def test_eval_step_and_unported_options(dense_env):
     np.testing.assert_allclose(m["loss"].item(), float(e["metrics"]["loss"]), rtol=1e-5)
     np.testing.assert_allclose(m["perplexity"].item(), np.exp(m["loss"].item()),
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="muP"):
-        port_step.make_optimizer(e["tm"], LR, mup_width_mult=2.0)
-    with pytest.raises(NotImplementedError, match="moments"):
-        port_step.make_optimizer(e["tm"], LR, moment_dtype=torch.bfloat16)
+    # muP and bf16 moments are ported (tests/test_torch_lowp_mup.py holds
+    # their updates to hma_tpu's); another moment dtype raises
+    tx = port_step.make_optimizer(e["tm"], LR, mup_width_mult=2.0)
+    assert set(tx.lr_mult.values()) == {0.5, 1.0}
+    tx = port_step.make_optimizer(e["tm"], LR, moment_dtype=torch.bfloat16)
+    assert all(m.dtype == torch.bfloat16 for m in [*tx.m.values(), *tx.v.values()])
+    with pytest.raises(ValueError, match="adam_moment_dtype"):
+        port_step.make_optimizer(e["tm"], LR, moment_dtype=torch.float16)
     # the optax chain the JAX step builds is what the port writes out
     assert isinstance(jax_step.make_optimizer(1e-3), optax.GradientTransformation)

@@ -9,6 +9,10 @@ process (see below), so every test process that imports it, every port test
 under pytest-xdist among them, runs torch's CPU ops and the plain references
 it compares against on one thread."""
 
+import copy
+import functools
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +52,27 @@ def tiny_card(qk_norm: bool = False,
     return card
 
 
+def _once_a_process(build):
+    """`build(**kw)` -> (jax_model, jax_params, port card, *arrays), made
+    once a set of arguments in a process (the jitted init is most of a
+    pair's cost, and several test files build the same pair); each call
+    returns copies of the arrays and a new port model loaded with the
+    params, so no caller sees another's changes."""
+    cache = {}
+
+    @functools.wraps(build)
+    def wrapper(model_cls, **kw):
+        key = json.dumps(kw, sort_keys=True, default=str)
+        if key not in cache:
+            cache[key] = build(**kw)
+        jm, params, cfg, *arrays = cache[key]
+        tm = model_cls(copy.deepcopy(cfg), dtype=torch.float32, device="cpu")
+        tm.load_state_dict(params_from_jax(params, cfg))
+        return (jm, jax.tree.map(np.array, params), tm, *(np.array(a) for a in arrays))
+
+    return wrapper
+
+
 def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
                action_network: str = "concat+modulate", **card_kw):
     """(jax_model, jax_params, torch_model, tokens, actions) in fp32.
@@ -56,7 +81,14 @@ def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
     CPU). Every parameter is perturbed with noise after init so that zero-init
     tensors (positional embedding, biases, mask tokens) are exercised by
     the conversion too. tokens (B, T, S) int32 with some mask ids;
-    actions (B, T, max_d_action) float32."""
+    actions (B, T, max_d_action) float32. Made once a process for each set
+    of arguments (`_once_a_process`)."""
+    return _jax_pair(STMaskGIT, qk_norm=qk_norm, B=B, seed=seed,
+                     action_network=action_network, **card_kw)
+
+
+@_once_a_process
+def _jax_pair(qk_norm, B, seed, action_network, **card_kw):
     card = tiny_card(qk_norm, action_network, **card_kw)
     jcfg = JaxGenieConfig(**card)
     jm = JaxSTMaskGIT(jcfg, dtype=jnp.float32)
@@ -65,13 +97,11 @@ def build_pair(qk_norm: bool = False, B: int = 2, seed: int = 0,
                           (B, jcfg.T, jcfg.S)).astype(np.int32)
     tokens[:, -1, ::3] = jcfg.image_vocab_size
     actions = rng.normal(size=(B, jcfg.T, jcfg.max_d_action)).astype(np.float32)
-    params = jax.jit(jm.init)({"params": jax.random.PRNGKey(seed)}, tokens, tokens,
+    # "action_drop" is drawn only by joint cards' init (no parameter reads it)
+    params = jax.jit(jm.init)({"params": jax.random.PRNGKey(seed),
+                               "action_drop": jax.random.PRNGKey(seed)}, tokens, tokens,
                               actions, jnp.asarray(0, jnp.int32))
-    params = perturbed(params, rng)
-    cfg = GenieConfig(**card)
-    tm = STMaskGIT(cfg, dtype=torch.float32, device="cpu")
-    tm.load_state_dict(params_from_jax(params, cfg))
-    return jm, params, tm, tokens, actions
+    return jm, perturbed(params, rng), GenieConfig(**card), tokens, actions
 
 
 def to_torch(x: np.ndarray) -> torch.Tensor:
@@ -131,7 +161,12 @@ def build_mar_pair(B: int = 2, seed: int = 0, **card_kw):
     """(jax_model, jax_params, torch_model, latents, actions) in fp32 for
     the tiny continuous card; latents (B, T, h, w, C), actions (B, T,
     max_d_action), both float32 numpy. The init is jitted; every parameter
-    is perturbed after it."""
+    is perturbed after it. Made once a process for each set of arguments."""
+    return _jax_mar_pair(STMAR, B=B, seed=seed, **card_kw)
+
+
+@_once_a_process
+def _jax_mar_pair(B, seed, **card_kw):
     card = tiny_mar_card(**card_kw)
     jcfg = JaxDiffusionGenieConfig(**card)
     jm = JaxSTMAR(jcfg, dtype=jnp.float32)
@@ -144,11 +179,7 @@ def build_mar_pair(B: int = 2, seed: int = 0, **card_kw):
                                "diffusion": jax.random.PRNGKey(seed + 1),
                                "action_drop": jax.random.PRNGKey(seed + 2)},
                               lat, lat, actions, jnp.asarray(0, jnp.int32), mask)
-    params = perturbed(params, rng)
-    cfg = DiffusionGenieConfig(**card)
-    tm = STMAR(cfg, dtype=torch.float32, device="cpu")
-    tm.load_state_dict(params_from_jax(params, cfg))
-    return jm, params, tm, lat, actions
+    return jm, perturbed(params, rng), DiffusionGenieConfig(**card), lat, actions
 
 
 def jax_sampler_draws(k_s, K: int, rows: int, C: int, cfg: float = 1.0):
@@ -287,3 +318,29 @@ class JaxTrainingDraws:
         if layers:
             out["dropout"] = self.masks(2 * layers * i, layers)
         return out
+
+
+def port_names(shapes, cfg) -> list:
+    """The port's parameter name of each leaf of a JAX param tree (or of
+    its `jax.eval_shape`), in `jax.tree.leaves` order, through
+    `params_from_jax`'s name map: leaf i is filled with i and read back."""
+    leaves, treedef = jax.tree.flatten(shapes)
+    coded = jax.tree.unflatten(treedef, [np.full(np.shape(x), i, np.float32)
+                                         for i, x in enumerate(leaves)])
+    names = [None] * len(leaves)
+    for name, arr in params_from_jax(coded, cfg).items():
+        names[int(arr.reshape(-1)[0])] = name
+    return names
+
+
+def jax_tree_from_port(tensors: dict, shapes, cfg):
+    """Port tensors {name: tensor} (parameters, grads or moments) as a JAX
+    tree shaped like `shapes` (numpy fp32; Dense weights transposed back to
+    kernels)."""
+    paths, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    out = []
+    for name, (path, s) in zip(port_names(shapes, cfg), paths):
+        x = tensors[name].detach().float().cpu().numpy()
+        dense = getattr(path[-1], "key", None) == "kernel" and len(np.shape(s)) == 2
+        out.append(x.T if dense else x)
+    return jax.tree.unflatten(treedef, out)
