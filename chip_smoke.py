@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-two)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-three)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -308,7 +308,25 @@ Phases, each failing the run on any error:
      `stochastic_round` on the card against the CPU bit for bit on
      SR_ELEMENTS values with the specials; `train_multi --model_type
      continuous --mu_transfer --adam_moment_dtype bfloat16` at 2 layers,
-     resumed from step 2, bit for bit with the straight run at step 4.
+     resumed from step 2, bit for bit with the straight run at step 4;
+ 23. sliced gradients and data parallelism: (a) the d512 STMAR card at
+     full width and depth, B 8, as phase 22 (b)'s steps, with fp32 moments
+     and then with muP and bf16 moments, each on one model and optimizer
+     without and with sliced gradients in turns (full, sliced, sliced,
+     full, ...; SLICED_STEPS timed steps of each), and the d256 card at
+     phase 6's shapes likewise: median step, busy share (a profile), the
+     peak memory of each step, and the fall in peak beside the stacked
+     tables' fp32 grads reckoned; the launches of phase 6's steps; then the 2-layer fp32 cards of both
+     families (STMAR's dropout live) one step with and one without sliced
+     gradients at domain 5: parameters and moments within SLICED_TOL. (b)
+     two ranks on the one card, a gloo group over CUDA tensors (this script
+     started twice with --dp_worker), one sliced-gradient step of the
+     2-layer d256 card in fp32, B 8 split 4 and 4 with unequal masked
+     counts, against one process on the whole batch: loss and every grad
+     the optimizer receives within DP_TOL, the ranks' parameters equal bit
+     for bit; beside them `python -m hma_tpu_torch.train_multi` under
+     torchrun's variables, a 1-rank NCCL group, on a 2-domain synthetic set
+     (sliced gradients on, the row grads reduced over the group), 4 steps.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -5039,18 +5057,565 @@ def surface_phase(records, timings):
         lowp_resume(Path(tmp))
 
 
+# ------------------------------------------------------------------ phase 23
+
+SLICED_TOL = 1e-6  # (a) sliced against full grads, 2-layer fp32: max|d| / max|x| a tensor
+DP_TOL = 1e-5  # (b) 2 ranks against 1 process: loss relative, grads max|dg| / max|g|
+DP_LR = 1e-4
+
+
+def stacked_grad_bytes(model, mask) -> tuple:
+    """(bytes of the stacked tables' fp32 grads at full size, at one row)."""
+    params = dict(model.named_parameters())
+    names = [n for n, s in mask.items() if s]
+    return (sum(params[n].numel() for n in names) * 4,
+            sum(params[n][0].numel() for n in names) * 4)
+
+
+SLICED_STEPS = 4  # timed steps of each kind a card in phase 23 (a)
+PROFILE_PAIRS = 12  # --sliced_profile: full/sliced pairs of the d512 fp32-moment step
+
+
+class HostAccount:
+    """Host time of the train step's parts, summed while `on`: the row swap
+    (`train/step.domain_rows`, in and out), the optimizer's `step` call (as
+    the host sees it) and Python's garbage collector (time, collections)."""
+
+    def __init__(self, step_module, tx):
+        import gc
+
+        self.t = {"swap": 0.0, "optimizer": 0.0, "gc": 0.0, "collections": 0}
+        self.on, self._gc_t0 = False, 0.0
+        rows, update = step_module.domain_rows, tx.step
+
+        @contextlib.contextmanager
+        def timed_rows(owners, d):
+            with self.timed("swap"):
+                cm = rows(owners, d)
+                leaves = cm.__enter__()
+            try:
+                yield leaves
+            finally:
+                with self.timed("swap"):
+                    cm.__exit__(None, None, None)
+
+        def timed_update(*a, **kw):
+            with self.timed("optimizer"):
+                return update(*a, **kw)
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self._gc_t0 = time.perf_counter()
+            elif self.on:
+                self.t["gc"] += time.perf_counter() - self._gc_t0
+                self.t["collections"] += 1
+
+        step_module.domain_rows, tx.step = timed_rows, timed_update
+        gc.callbacks.append(on_gc)
+        self._undo = lambda: (setattr(step_module, "domain_rows", rows),
+                              gc.callbacks.remove(on_gc))
+
+    @contextlib.contextmanager
+    def timed(self, key):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.on:
+                self.t[key] += time.perf_counter() - t0
+
+    def take(self) -> dict:
+        """The sums since the last take, then zero."""
+        out = dict(self.t)
+        self.t = {k: 0 * v for k, v in self.t.items()}
+        return out
+
+    def close(self):
+        self._undo()
+
+
+def host_profile(label, go, out_path=None):
+    """`go` (two steps) under cProfile: the 14 functions of most own time,
+    and the whole table, by cumulative time, in `out_path` where given."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    go()
+    torch.cuda.synchronize()
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(14)
+    print(f"  {label}, host profile of two steps (cProfile, own time first):", flush=True)
+    for line in text.getvalue().splitlines():
+        if line.strip() and not line.startswith(("   Ordered", "   List")):
+            print(f"    {line}", flush=True)
+    if out_path is not None:
+        full = io.StringIO()
+        pstats.Stats(prof, stream=full).sort_stats("cumulative").print_stats()
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(full.getvalue())
+
+
+def sliced_pair(label, build, batch, continuous, shapes, records, n_steps=SLICED_STEPS,
+                host=False, profile_dir=None, **tx_kw):
+    """One card's full-width step without and with sliced gradients on one
+    model and optimizer, in turns (full, sliced, sliced, full, ...;
+    `n_steps` timed steps of each after a warm-up of each), with the launch
+    counts set to 0 just before each step and read just after, and the peak
+    memory of each step (params and moments included): median s of each
+    kind, busy share (a profile of each), peak memory. The launches land in
+    phase 3's records at `shapes`. Prints the fall in peak memory beside the
+    stacked tables' fp32 grads reckoned. With `host`, also each adjacent
+    pair's wall ratio, the host time of the step's parts a step
+    (`HostAccount`) and a cProfile of two steps of each kind (the whole
+    tables in `profile_dir`, where given)."""
+    import torch
+
+    from hma_tpu_torch.train import step as step_module
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    torch.cuda.empty_cache()
+    model, cfg = build()
+    mask = stacked_param_mask(model, cfg)
+    tx = make_domain_sliced_optimizer(model, 1e-4, stacked_mask=mask,
+                                      num_domains=cfg.num_domains, **tx_kw)
+    steps = {sliced: make_train_step(model.train(), tx, continuous=continuous,
+                                     action_loss_weight=cfg.action_loss_weight,
+                                     stacked_mask=mask if sliced else None)
+             for sliced in (False, True)}
+    want = train_launches(cfg.num_layers, "transpose")
+    secs, peaks = {False: [], True: []}, {False: [], True: []}
+    parts = {False: [], True: []}  # with `host`: (s to return, HostAccount sums) a step
+    account = HostAccount(step_module, tx) if host else None
+    for sliced in (False, True):  # warm-up, not counted
+        steps[sliced](batch, rng=0)
+    order = [False, True, True, False] * (n_steps // 2)
+    for i, sliced in enumerate(order):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        if account:
+            account.take()
+            account.on = True
+        t0 = time.perf_counter()
+        m = steps[sliced](batch, rng=i + 1)
+        returned = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        secs[sliced].append(time.perf_counter() - t0)
+        if account:
+            account.on = False
+            parts[sliced].append((returned, account.take()))
+        peaks[sliced].append(torch.cuda.max_memory_allocated())
+        counts = read_counts()
+        require(counts == want, f"{label}: launches of a step {counts}, want {want}")
+        require(math.isfinite(m["loss"].item()) and m["skipped"].item() == 0.0,
+                f"{label}: step not finite or skipped: {m}")
+        set_launches(records, {(k, shapes[k]): counts[k] for k in TRAINING_KERNELS},
+                     add=True)
+    med = {k: sorted(v)[len(v) // 2] for k, v in secs.items()}
+    for sliced in (False, True):
+        name = f"{label}, {'sliced' if sliced else 'full'} grads"
+        print(f"  {name}: steps {', '.join(f'{t:.4f}' for t in secs[sliced])} s, median "
+              f"{med[sliced]:.4f} s; peak memory a step "
+              f"{', '.join(f'{p / 1e9:.2f}' for p in peaks[sliced])} GB", flush=True)
+        if account:
+            n = len(parts[sliced])
+            mean = lambda k: sum(t[k] for _, t in parts[sliced]) / n
+            print(f"  {name}, host a step (mean of {n}): returns after "
+                  f"{sum(r for r, _ in parts[sliced]) / n * 1e3:.2f} ms; row swap "
+                  f"{mean('swap') * 1e3:.3f} ms, optimizer call {mean('optimizer') * 1e3:.2f} "
+                  f"ms, garbage collector {mean('gc') * 1e3:.3f} ms in "
+                  f"{mean('collections'):.2f} collections", flush=True)
+        profile_run(name, lambda: steps[sliced](batch, rng=99), med[sliced])
+    if account:
+        account.close()
+        # each sliced step against the full step beside it in the ABBA order
+        ratios = sorted(b / a - 1 for a, b in zip(secs[False], secs[True]))
+        print(f"  {label}: {len(ratios)} adjacent pairs, sliced / full wall - 1: median "
+              f"{ratios[len(ratios) // 2]:+.2%}, min {ratios[0]:+.2%}, max {ratios[-1]:+.2%}; "
+              f"{', '.join(f'{r:+.2%}' for r in ratios)}", flush=True)
+        for sliced in (False, True):
+            tag = "sliced" if sliced else "full"
+            host_profile(f"{label}, {tag} grads",
+                         lambda: [steps[sliced](batch, rng=200 + j) for j in range(2)],
+                         profile_dir and Path(profile_dir) / f"host_profile_{tag}.txt")
+    full, row = stacked_grad_bytes(model, mask)
+    p0, p1 = max(peaks[False]), max(peaks[True])
+    print(f"  {label}: sliced against full grads, median step {med[True]:.4f} / "
+          f"{med[False]:.4f} s ({med[True] / med[False] - 1:+.2%}); peak memory "
+          f"{p1 / 1e9:.2f} / {p0 / 1e9:.2f} GB, a fall of {(p0 - p1) / 1e9:.2f} GB against "
+          f"{(full - row) / 1e9:.2f} GB reckoned (the stacked tables' fp32 grads, "
+          f"{full / 1e9:.2f} GB full, {row / 1e9:.3f} GB a row)", flush=True)
+    require(max(peaks[True]) < min(peaks[False]),
+            f"{label}: sliced grads did not lower the peak")
+    del model, tx, steps
+
+
+def sliced_exactness(label, model, batch, continuous, draws=None):
+    """(a) a 2-layer fp32 card: one step with sliced grads and one without
+    from the same weights and draws; parameters and moments must agree."""
+    import copy
+
+    import torch
+
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    out = []
+    for sliced in (False, True):
+        m = copy.deepcopy(model)
+        mask = stacked_param_mask(m, m.config)
+        tx = make_domain_sliced_optimizer(m, 1e-3, stacked_mask=mask,
+                                          num_domains=m.config.num_domains)
+        step = make_train_step(m, tx, continuous=continuous,
+                               action_loss_weight=m.config.action_loss_weight,
+                               stacked_mask=mask if sliced else None)
+        metrics = step(batch, rng=5, draws=draws)
+        require(metrics["skipped"].item() == 0.0, f"{label}: the step was skipped")
+        out.append({"params": dict(m.named_parameters()), "m": tx.m, "v": tx.v})
+    worst, where = 0.0, ""
+    for what in ("params", "m", "v"):
+        for n, want in out[0][what].items():
+            scale = want.abs().max().item()
+            err = (out[1][what][n] - want).abs().max().item()
+            ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+            if ratio >= worst:
+                worst, where = ratio, f"{what} {n}"
+    print(f"  {label}: sliced against full grads after one step, worst max|d|/max|x| "
+          f"{worst:.3e} at {where} (tol {SLICED_TOL})", flush=True)
+    require(worst <= SLICED_TOL, f"{label}: sliced and full grads differ: {worst:.3e}")
+
+
+def d512_sliced_case(B=8):
+    """(config, K1'-K4' shapes of its step, batch on the card) of phase 23
+    (a)'s d512 STMAR step."""
+    cfg = mar_flagship_config(40)
+    S_tot = cfg.S // cfg.patch_size**2 + cfg.action_token_size
+    shapes = {"K1'": (B * cfg.T, S_tot, 8, 64), "K2'": (B * cfg.T, S_tot, 8, 64),
+              "K3'": (B * S_tot, cfg.T, 8, 64), "K4'": (B * S_tot, cfg.T, 8, 64)}
+    return cfg, shapes, mar_batch(cfg, B, "cuda")
+
+
+def sliced_profile(profile_dir=None) -> int:
+    """`--sliced_profile`: phase 23 (a)'s d512 STMAR step with fp32 moments,
+    PROFILE_PAIRS full/sliced pairs on one model, with the host's accounting
+    and a cProfile of each kind (`sliced_pair(host=True)`), the whole tables
+    in `profile_dir` where given; the kernels are built on first use."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+
+    print(nvidia_smi_line(), flush=True)
+    cfg, shapes, batch = d512_sliced_case()
+    t0 = time.perf_counter()
+    sliced_pair("d512 STMAR step, fp32 moments",
+                lambda: (STMAR(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                               generator=torch.Generator("cuda").manual_seed(0)), cfg),
+                batch, True, shapes, [], n_steps=PROFILE_PAIRS, host=True,
+                profile_dir=profile_dir)
+    print(f"sliced profile: {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+def sliced_grads_phase(records):
+    """(a) sliced gradients on the card."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+    from hma_tpu_torch.train.trainer import mup_base_model
+
+    B = 8
+    mar_cfg, mar_shapes, mar_b = d512_sliced_case(B)
+    for label, mup in (("d512 STMAR step, fp32 moments", False),
+                       ("d512 STMAR step, muP + bf16 moments", True)):
+        cfg = dataclasses.replace(mar_cfg, use_mup=mup)
+
+        def build(cfg=cfg):
+            return STMAR(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                         generator=torch.Generator("cuda").manual_seed(0)), cfg
+
+        kw = {}
+        if mup:
+            kw = dict(mup_width_mult=cfg.d_model / 256, moment_dtype="bfloat16",
+                      mup_base=mup_base_model(STMAR(cfg, dtype=torch.bfloat16, device="meta"),
+                                              cfg))
+        sliced_pair(label, build, mar_b, True, mar_shapes, records, **kw)
+    del mar_b
+    cfg = flagship_config(40)
+    d256_shapes = {"K1'": (B * cfg.T, 320, 8, 32), "K2'": (B * cfg.T, 320, 8, 32),
+                   "K3'": (B * 320, cfg.T, 8, 32), "K4'": (B * 320, cfg.T, 8, 32)}
+
+    def build256():
+        return STMaskGIT(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                         generator=torch.Generator("cuda").manual_seed(0)), cfg
+
+    sliced_pair("d256 step, fp32 moments", build256, train_batch(cfg, B, "cuda"), False,
+                d256_shapes, records)
+
+    # exactness on the 2-layer fp32 cards, both families (STMAR's dropout live)
+    torch.cuda.empty_cache()
+    small = flagship_config(40)
+    small.num_layers = 2
+    model = STMaskGIT(small, dtype=torch.float32, device="cuda", remat=True,
+                      generator=torch.Generator("cuda").manual_seed(3))
+    batch = train_batch(small, 2, "cuda")
+    batch["domain_id"] = 5
+    sliced_exactness("2-layer d256, fp32, domain 5", model, batch, False)
+    small = mar_flagship_config(40)
+    small.num_layers = 2
+    model = STMAR(small, dtype=torch.float32, device="cuda", remat=True,
+                  generator=torch.Generator("cuda").manual_seed(3))
+    with torch.no_grad():  # wake the zero-init heads and tokens
+        g = torch.Generator("cuda").manual_seed(4)
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
+    batch = mar_batch(small, 2, "cuda")
+    batch["domain_id"] = 5
+    sliced_exactness("2-layer d512 STMAR, fp32, domain 5", model, batch, True)
+
+
+def write_dp_case(tmp) -> None:
+    """(b)'s case, written once for every process: the 2-layer d256 card (40
+    domains, seed 3) and a B 8 batch whose halves hold unequal masked counts
+    (half of each frame 1.. in rows 0-3, three quarters in rows 4-7),
+    domain 5."""
+    import torch
+
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+
+    cfg = flagship_config(40)
+    cfg.num_layers = 2
+    model = STMaskGIT(cfg, dtype=torch.float32, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    batch = train_batch(cfg, 8, "cpu")
+    batch["input_ids"][4:, 1:, : 3 * cfg.S // 4] = cfg.image_vocab_size
+    batch["domain_id"] = 5
+    torch.save({"state": model.state_dict(), "batch": batch}, Path(tmp) / "dp_case.pt")
+
+
+def load_dp_case(tmp):
+    """(model in fp32 on the card, batch on the card) of `write_dp_case`."""
+    import torch
+
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+
+    cfg = flagship_config(40)
+    cfg.num_layers = 2
+    case = torch.load(Path(tmp) / "dp_case.pt", weights_only=False)
+    model = STMaskGIT(cfg, dtype=torch.float32, device="cuda", remat=True)
+    model.load_state_dict(case["state"])
+    return model, {k: (v.cuda() if torch.is_tensor(v) else v)
+                   for k, v in case["batch"].items()}
+
+
+def dp_step(model, batch, group=None):
+    """One sliced-gradient step (the sliced AdamW) on `batch` — with
+    `group`, on this rank's rows — capturing the grads the optimizer gets:
+    (loss, {name: grad}, {name: param after the step})."""
+    import torch
+
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    mask = stacked_param_mask(model, model.config)
+    tx = make_domain_sliced_optimizer(model, DP_LR, stacked_mask=mask,
+                                      num_domains=model.config.num_domains)
+    seen = {}
+    update = tx.step
+
+    def spy(params, grads, d, ok, noise=None):
+        seen.update({n: g.detach().clone() for n, g in grads.items()})
+        return update(params, grads, d, ok, noise)
+
+    tx.step = spy
+    if group is not None:
+        B = batch["input_ids"].shape[0]
+        rank, world = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+        rows = slice(rank * B // world, (rank + 1) * B // world)
+        batch = {k: (v[rows] if torch.is_tensor(v) else v) for k, v in batch.items()}
+    step = make_train_step(model, tx, stacked_mask=mask, group=group)
+    metrics = step(batch)
+    return (metrics["loss"].item(), seen,
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def dp_worker(spec: str) -> int:
+    """A rank of (b): joins a gloo group over the card's CUDA tensors,
+    takes one step on its rows, saves what it saw."""
+    import torch
+
+    rank, world, port, tmp = json.loads(spec)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    reset_counts()
+    model, batch = load_dp_case(tmp)
+    loss, grads, params = dp_step(model, batch, torch.distributed.group.WORLD)
+    counts = read_counts()
+    torch.save({"loss": loss, "grads": {n: g.cpu() for n, g in grads.items()},
+                "params": {n: p.cpu() for n, p in params.items()}, "counts": counts},
+               Path(tmp) / f"dp_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def data_parallel_phase(tmp):
+    """(b) the dp path on one card: 2 gloo ranks against 1 process, and
+    beside them a 1-rank NCCL group through train_multi."""
+    import torch
+
+    write_dp_case(tmp)
+    port = free_port()
+    nccl = start_nccl_train_multi(Path(tmp) / "nccl")  # runs beside the gloo ranks
+    procs = [nccl[0]]
+    try:
+        procs += [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                    "--dp_worker", json.dumps([r, 2, port, str(tmp)])],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True) for r in range(2)]
+        t0 = time.perf_counter()
+        model, batch = load_dp_case(tmp)
+        reset_counts()
+        loss, grads, params = dp_step(model, batch)
+        counts = read_counts()
+        outs = [p.communicate(timeout=300)[0] for p in procs[1:]]
+        gloo_secs = time.perf_counter() - t0
+        check_nccl_train_multi(*nccl)
+    finally:  # every process this phase started ends with it
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs[1:], outs)):
+        require(p.returncode == 0, f"dp rank {r} failed:\n{out[-4000:]}")
+    ranks = [torch.load(Path(tmp) / f"dp_rank{r}.pt", weights_only=True) for r in range(2)]
+    loss_err = max(abs(r["loss"] - loss) / abs(loss) for r in ranks)
+    worst, where = 0.0, ""
+    for n, want in grads.items():
+        scale = want.abs().max().item()
+        err = (ranks[0]["grads"][n] - want.cpu()).abs().max().item()
+        ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        if ratio >= worst:
+            worst, where = ratio, n
+    same = all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in params)
+    print(f"  2 gloo ranks on one card (CUDA tensors), 2-layer d256, B 8 (4 a rank, "
+          f"unequal masked counts), fp32, one sliced-grad step: loss {ranks[0]['loss']:.6f} "
+          f"against 1 process {loss:.6f} (rel err {loss_err:.3e}, tol {DP_TOL}); "
+          f"{len(grads)} grads, worst max|dg|/max|g| {worst:.3e} at {where} (tol {DP_TOL}); "
+          f"the ranks' params after the step equal bit for bit: {same}; launches a rank "
+          f"{[r['counts'] for r in ranks]}, 1 process {counts}; {gloo_secs:.1f} s",
+          flush=True)
+    require(loss_err <= DP_TOL, "2 ranks' loss differs from 1 process's")
+    require(worst <= DP_TOL, f"2 ranks' grad {where} differs: {worst:.3e}")
+    require(same, "the ranks' params differ after the step")
+    require(all(r["counts"][k] for r in ranks for k in TRAINING_KERNELS),
+            "a rank missed a kernel")
+
+
+def start_nccl_train_multi(root):
+    """(b) `python -m hma_tpu_torch.train_multi` under torchrun's variables,
+    a 1-rank NCCL group, on a 2-domain synthetic set of the 2-layer d256
+    card, started in the background: (process, root, start time)."""
+    import os
+
+    cfg = flagship_config(2)
+    cfg.num_layers = 2
+    for d in cfg.action_domains:
+        write_domain_dataset(root / f"{d}_magvit_max1000000_train", cfg, d, seed=7)
+    cfg.save_pretrained(str(root / "config.json"))
+    (root / "split.yaml").write_text(f"domains: {','.join(cfg.action_domains)}\n")
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hma_tpu_torch.train_multi", "--genie_config",
+         str(root / "config.json"), "--output_dir", str(root / "run"), "--train_split",
+         str(root / "split.yaml"), "--data_root", str(root), "--window_size", str(cfg.T),
+         "--per_device_train_batch_size", "4", "--max_train_steps", "4",
+         "--overfit_first_batch", "--checkpointing_steps", "2", "--eval_every_n_steps", "4",
+         "--max_eval_steps", "1", "--log_every", "1", "--num_warmup_steps", "1",
+         "--learning_rate", "3e-4"],
+        cwd=str(ROOT), env=env, stdout=(root / "log.txt").open("w"),
+        stderr=subprocess.STDOUT)
+    return proc, root, time.perf_counter()
+
+
+def check_nccl_train_multi(proc, root, t0):
+    proc.wait(timeout=300)
+    out = (root / "log.txt").read_text()
+    require(proc.returncode == 0, f"train_multi under a 1-rank NCCL group failed:\n"
+            f"{out[-6000:]}")
+    lines = [json.loads(l) for l in (root / "run" / "metrics.jsonl").read_text().splitlines()]
+    conf = lines[0]["_config"]
+    losses = [l["train/loss"] for l in lines if "train/loss" in l]
+    print(f"  train_multi, 1-rank NCCL group (torchrun's variables), 2-layer d256, 2 "
+          f"domains, B 4: process group {conf['process_group']}, world {conf['world_size']}, "
+          f"sliced grads {conf['sliced_grads_active']}, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; {time.perf_counter() - t0:.1f} s "
+          "(beside the gloo ranks)", flush=True)
+    require(conf["process_group"] == "nccl" and conf["world_size"] == 1,
+            "train_multi did not run in the NCCL group")
+    require(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+            "train_multi losses under NCCL")
+    require((root / "run" / "final_checkpt" / "train_state.pt").is_file(),
+            "no final checkpoint under NCCL")
+
+
+def write_domain_dataset(path, cfg, domain, seed):
+    """A synthetic 40-frame token dataset named `domain`, with its actions."""
+    from hma_tpu_torch.data.datasets import write_token_dataset
+
+    rng = np.random.default_rng(seed)
+    n, side = 40, math.isqrt(cfg.S)
+    d = cfg.action_domains.index(domain)
+    write_token_dataset(
+        path, rng.integers(0, cfg.image_vocab_size, (n, side, side)).astype(np.uint32),
+        np.repeat(np.arange(n // 20), 20),
+        rng.normal(size=(n, cfg.d_actions[d])).astype(np.float32),
+        {"name": domain, "vocab_size": cfg.image_vocab_size})
+
+
+def sliced_dp_phase(records):
+    """Phase 23: sliced gradients (a) and the data-parallel path (b)."""
+    sliced_grads_phase(records)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_parallel_phase(tmp)
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 23)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 24)),
                    help="comma-separated phases to run (1 and 2 always run)")
-    phases = {int(x) for x in p.parse_args(argv).phases.split(",")} | {1, 2}
+    p.add_argument("--dp_worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--sliced_profile", action="store_true",
+                   help="only the d512 STMAR fp32-moment step, full against sliced "
+                        f"grads in {PROFILE_PAIRS} pairs, with a host profile")
+    p.add_argument("--profile_dir", default=None,
+                   help="with --sliced_profile: write the whole cProfile tables here")
+    args = p.parse_args(argv)
+    phases = {int(x) for x in args.phases.split(",")} | {1, 2}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.dp_worker:  # a rank of phase 23 (b), started by the phase itself
+        return dp_worker(args.dp_worker)
+    if args.sliced_profile:
+        return sliced_profile(args.profile_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -5106,7 +5671,11 @@ def main(argv=None) -> int:
                   "Adam moments; entry points: train_multi --action_network "
                   "concat+cross_attention --mu_transfer, then generate; train_multi "
                   "--model_type continuous --mu_transfer --adam_moment_dtype bfloat16, "
-                  "resumed", lambda: surface_phase(records, timings))]
+                  "resumed", lambda: surface_phase(records, timings)),
+             (23, "sliced gradients (d512 STMAR and d256 steps with and without, "
+                  "exactness); data parallelism: 2 gloo ranks on one card against 1 "
+                  "process, train_multi in a 1-rank NCCL group",
+              lambda: sliced_dp_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()

@@ -21,16 +21,22 @@ and scores against the raw frames.
 
 One extra flag: `--device` (default: the CUDA card; raises if there is
 none). The model and the codec compute in bf16 on the card and in fp32 on
-the CPU; the pixel metrics run on the same device. One device and one
-process (`parallel.sharded_eval`). Not ported yet, and raising when asked
-for: `--use_wandb` (ROADMAP.md Queue A, item 11) and meshes above one
-device (`--fsdp/--tp/--sp` > 1, item 10).
+the CPU; the pixel metrics run on the same device. Data-parallel across
+processes when launched with torchrun (`parallel.sharded_eval`): each
+evaluates its rows of every global batch (`--batch_size`, rounded down to
+a multiple of the world size) with its rows of the global batch's draws
+(`--seed`), so that N processes give what one gives; the token metrics are
+the global batch's, the pixel metrics and gen_time the mean over the
+processes, and process 0 writes. Not ported yet, and raising when asked
+for: `--use_wandb` (ROADMAP.md Queue A, item 11) and `--fsdp/--tp/--sp` > 1
+(items 10b and 10c).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from pathlib import Path
 
@@ -44,12 +50,7 @@ from hma_tpu_torch.generate import load_model
 from hma_tpu_torch.metrics.image import batch_psnr, batch_ssim
 from hma_tpu_torch.metrics.token import AvgMetric, teacher_forced_metrics
 from hma_tpu_torch.parallel import distributed as dist
-from hma_tpu_torch.parallel.sharded_eval import (
-    local_rows,
-    put_batch,
-    round_batch,
-    setup_eval_mesh,
-)
+from hma_tpu_torch.parallel.sharded_eval import round_batch, setup_eval_mesh
 from hma_tpu_torch.rollout.decode import codec, make_token_decoder
 from hma_tpu_torch.rollout.maskgit import autoregressive_logits, teacher_forced_logits
 from hma_tpu_torch.tokenizer.convert import load_magvit2
@@ -136,7 +137,7 @@ def main(argv=None):
         raise NotImplementedError(evaluate_feature.WANDB)
     if args.raw_image_data and not args.tokenizer_ckpt:
         raise ValueError("--raw_image_data requires --tokenizer_ckpt")
-    dist.init_distributed()
+    dist.init_distributed(device=args.device)
     device = setup_eval_mesh(fsdp=args.fsdp, tp=args.tp, sp=args.sp, device=args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     decode = encode = None
@@ -171,21 +172,28 @@ def main(argv=None):
 
     def perturbed(tokens, actions):
         """Samples of a rollout with the actions moved by scale x N(0, 1)."""
-        noise = torch.randn(actions.shape, generator=generator, device=device)
+        noise = dist.draw_rows(
+            lambda m, g: torch.randn((m, *actions.shape[1:]), generator=g, device=device),
+            len(actions), generator)
         return predict(tokens, actions + args.perturbation_scale * noise, generator)[0]
 
-    logger = MetricLogger(args.output_dir, config=vars(args))
-    metrics = {k: AvgMetric() for k in ("loss", "perplexity", "acc", "gen_time")}
-    pixel = {k: AvgMetric() for k in ("dec_time", "psnr", "ssim", "delta_psnr",
+    logger = MetricLogger(args.output_dir, config=vars(args), enabled=dist.is_primary())
+    metrics = {k: AvgMetric() for k in ("loss", "perplexity", "acc")}
+    # host-side: per-process means, averaged over the processes at the end
+    pixel = {k: AvgMetric() for k in ("gen_time", "dec_time", "psnr", "ssim", "delta_psnr",
                                       "psnr_copy_prev", "psnr_vs_copy")}
-    generator = torch.Generator(device).manual_seed(args.seed)
-    total = round_batch(min(args.max_examples, len(dataset)), device)
-    if total <= 0:
+    # each process draws its rows of the global batch's draws: N processes = 1
+    generator = dist.rank_rows(torch.Generator(device).manual_seed(args.seed),
+                               dist.world_group())
+    total, B_full = (round_batch(n)
+                     for n in (min(args.max_examples, len(dataset)), args.batch_size))
+    if total <= 0 or B_full <= 0:
         raise ValueError(f"min(--max_examples {args.max_examples}, len(dataset) "
-                         f"{len(dataset)}) is 0: nothing to evaluate")
+                         f"{len(dataset)}) or --batch_size {args.batch_size} rounds to "
+                         f"0 over {dist.process_count()} processes: nothing to evaluate")
     n_done = 0
     while n_done < total:
-        B = min(args.batch_size, total - n_done)
+        B = min(B_full, total - n_done)
         items = [dataset[int(i)] for i in dist.local_slice(np.arange(n_done, n_done + B))]
         raw_frames = None
         if "images" in items[0]:  # raw frames: tokenized here, the pixel ground truth
@@ -193,12 +201,12 @@ def main(argv=None):
             tokens = encode(raw_frames.reshape(-1, *raw_frames.shape[2:]))
         else:
             tokens = np.stack([it["input_ids"] for it in items])
-        local = {"tokens": tokens.reshape(B, config.T, -1).astype(np.int64)}
+        local = {"tokens": tokens.reshape(len(items), config.T, -1).astype(np.int64)}
         if "action_ids" in items[0]:
             local["actions"] = _pad_actions(
                 np.stack([it["action_ids"] for it in items]).astype(np.float32),
                 config.max_d_action)
-        batch = put_batch(local, device)
+        batch = dist.make_global_batch(local, device)
         tokens, actions = batch["tokens"], batch.get("actions")
         t0 = time.perf_counter()
         samples, logits = predict(tokens, actions, generator)
@@ -207,15 +215,18 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize()
         gen_time = (time.perf_counter() - t0) / (config.T - 1)
+        if dist.process_count() > 1:  # the global batch's means (equal shards)
+            tf = dist.aggregate_host_metrics({"loss": tf["loss"], "acc": tf["acc"]})
+            tf["perplexity"] = math.exp(tf["loss"])
         for k in ("loss", "perplexity", "acc"):
             metrics[k].update(tf[k], B)
-        metrics["gen_time"].update(gen_time, B)
+        pixel["gen_time"].update(gen_time, B)
         if args.save_outputs_dir:
             out = Path(args.save_outputs_dir)
             out.mkdir(parents=True, exist_ok=True)
             r = dist.process_index()
-            np.save(out / f"pred_{n_done}_r{r}.npy", local_rows(samples))
-            np.save(out / f"gt_{n_done}_r{r}.npy", local_rows(tokens))
+            np.save(out / f"pred_{n_done}_r{r}.npy", samples.cpu().numpy())
+            np.save(out / f"gt_{n_done}_r{r}.npy", tokens.cpu().numpy())
         if decode is not None:
             trials = args.num_action_trials if actions is not None else 0
             pixel_metrics(pixel, decode, samples, tokens, raw_frames, config,

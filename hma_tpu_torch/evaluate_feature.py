@@ -18,8 +18,13 @@ every frame; I3D embeddings of every clip, `--fvd_backend`, weights from
 
 One extra flag: `--device` (default: the CUDA card; raises if there is
 none). bf16 on the card, fp32 on the CPU, the metric backbones fp32 on
-both; one device, one process. `--use_wandb` (ROADMAP.md Queue A, item 11)
-and meshes above one device (item 10) raise.
+both. Data-parallel across processes when launched with torchrun: each
+evaluates its rows of every global batch (`--batch_size`, rounded down to a
+multiple of the world size) with its rows of the global batch's draws, so
+that N processes give what one gives; the latent MSEs are the global
+batch's, the FID/FVD pass gathers every process's rows, gen_time is the
+mean over the processes, and process 0 writes. `--use_wandb` (ROADMAP.md
+Queue A, item 11) and `--fsdp/--tp/--sp` > 1 (items 10b, 10c) raise.
 """
 
 from __future__ import annotations
@@ -38,12 +43,7 @@ from hma_tpu_torch.metrics.fid import calculate_fid, fid_from_features
 from hma_tpu_torch.metrics.fvd import calculate_fvd
 from hma_tpu_torch.metrics.token import AvgMetric
 from hma_tpu_torch.parallel import distributed as dist
-from hma_tpu_torch.parallel.sharded_eval import (
-    local_rows,
-    put_batch,
-    round_batch,
-    setup_eval_mesh,
-)
+from hma_tpu_torch.parallel.sharded_eval import round_batch, setup_eval_mesh
 from hma_tpu_torch.rollout.decode import decode_clips, load_svd_decoder
 from hma_tpu_torch.rollout.mar import generate_latents, teacher_forced_latents
 from hma_tpu_torch.train.trainer import _pad_actions
@@ -117,7 +117,7 @@ def main(argv=None):
             raise FileNotFoundError(f"{flag} {path}: no such file")
     if args.use_wandb:
         raise NotImplementedError(WANDB)
-    dist.init_distributed()
+    dist.init_distributed(device=args.device)
     device = setup_eval_mesh(fsdp=args.fsdp, tp=args.tp, sp=args.sp, device=args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model, config = load_mar_model(args.checkpoint_dir, device, dtype)
@@ -145,25 +145,30 @@ def main(argv=None):
     def load(lo, B):
         items = [dataset[int(i)] for i in dist.local_slice(np.arange(lo, lo + B))]
         local = {"lat": np.stack([it["input_ids"] for it in items])
-                 .reshape(B, T, h, h, C).astype(np.float32)}
+                 .reshape(len(items), T, h, h, C).astype(np.float32)}
         if "action_ids" in items[0]:
             local["actions"] = _pad_actions(
                 np.stack([it["action_ids"] for it in items]).astype(np.float32),
                 config.max_d_action)
-        batch = put_batch(local, device)
+        batch = dist.make_global_batch(local, device)
         return batch["lat"], batch.get("actions")
 
-    logger = MetricLogger(args.output_dir, config=vars(args))
+    logger = MetricLogger(args.output_dir, config=vars(args), enabled=dist.is_primary())
     metrics = {k: AvgMetric() for k in ("latent_mse", "gen_time")}
     frame_sum = np.zeros(T - t_first)
-    generator = torch.Generator(device).manual_seed(args.seed)
-    total = round_batch(min(args.max_examples, len(dataset)), device)
-    if total <= 0:
+    # each process draws its rows of the global batch's draws: N processes = 1
+    seeded = lambda seed: dist.rank_rows(torch.Generator(device).manual_seed(seed),
+                                         dist.world_group())
+    generator = seeded(args.seed)
+    total, B_full = (round_batch(n)
+                     for n in (min(args.max_examples, len(dataset)), args.batch_size))
+    if total <= 0 or B_full <= 0:
         raise ValueError(f"min(--max_examples {args.max_examples}, len(dataset) "
-                         f"{len(dataset)}) is 0: nothing to evaluate")
+                         f"{len(dataset)}) or --batch_size {args.batch_size} rounds to "
+                         f"0 over {dist.process_count()} processes: nothing to evaluate")
     n_done = 0
     while n_done < total:
-        B = min(args.batch_size, total - n_done)
+        B = min(B_full, total - n_done)
         lat, actions = load(n_done, B)
         t0 = time.perf_counter()
         out = predict(lat, actions, generator)
@@ -172,22 +177,26 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize()
         gen_time = (time.perf_counter() - t0) / (T - t_first)
-        frame_sum += mse_frames.cpu().numpy() * B
+        # the global batch's means: equal shards, so the mean over processes
+        both = dist.gather_rows(np.concatenate([[mse], mse_frames.cpu().numpy()])[None])
+        mse, mse_frames = float(both[:, 0].mean()), both[:, 1:].mean(0)
+        frame_sum += mse_frames * B
         metrics["latent_mse"].update(mse, B)
         metrics["gen_time"].update(gen_time, B)
         n_done += B
 
     result = {k: m.mean() for k, m in metrics.items() if m.count > 0}
+    result["gen_time"] = dist.aggregate_host_metrics({"t": result["gen_time"]})["t"]
     result["num_examples"] = n_done
     result["latent_mse_per_frame"] = (frame_sum / n_done).tolist()
     if args.compute_fid or args.compute_fvd:
         preds, gts = [], []
-        for i in range(0, total, args.batch_size):
-            lat, actions = load(i, min(args.batch_size, total - i))
-            gen = torch.Generator(device).manual_seed(FID_SEED + i)
-            preds.append(local_rows(predict(lat, actions, gen).float()))
-            gts.append(local_rows(lat))
-        pred, gt = np.concatenate(preds), np.concatenate(gts)
+        for i in range(0, total, B_full):
+            lat, actions = load(i, min(B_full, total - i))
+            preds.append(predict(lat, actions, seeded(FID_SEED + i)).float().cpu().numpy())
+            gts.append(lat.cpu().numpy())
+        # every process's rows, so that the statistics are the global ones
+        pred, gt = (dist.gather_rows(np.concatenate(x)) for x in (preds, gts))
         if args.vae_checkpoint:
             decode = load_svd_decoder(args.vae_checkpoint, device=device)
             pred_px, gt_px = decode_clips(decode, pred), decode_clips(decode, gt)

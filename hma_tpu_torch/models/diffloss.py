@@ -46,6 +46,7 @@ from hma_tpu_torch.ops.diffusion_sampler import (
     pregenerate_noises,
     schedule_table,
 )
+from hma_tpu_torch.parallel.distributed import draw_rows, global_count
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -276,20 +277,25 @@ class DiffLoss(nn.Module):
              dim_mask: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None,
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             noise: Optional[torch.Tensor] = None, group=None,
+             blocks: int = 1) -> torch.Tensor:
         """Masked diffusion loss over token rows: target (N, C), z (N, Z),
         mask (N,) weights of the rows that count (all, when None); dim_mask
         (C,) the channels that exist (padded action channels are hidden
         from the net and left out of the mean).
 
         The draws, per-row timesteps t (N,) and noise (N, C), come from
-        `generator`, t first, or are handed in."""
-        N = target.shape[0]
+        `generator`, t first, or are handed in; the rows are `blocks` tiled
+        copies of the batch's (`distributed.draw_rows`). With `group` (data
+        parallelism) the mask's count is summed over its ranks."""
+        N, dev = target.shape[0], target.device
         if t is None:
-            t = torch.randint(0, self.train_sched.num_timesteps, (N,),
-                              generator=generator, device=target.device)
+            K = self.train_sched.num_timesteps
+            t = draw_rows(lambda m, g: torch.randint(0, K, (m,), generator=g, device=dev),
+                          N, generator, blocks)
         if noise is None:
-            noise = torch.randn(target.shape, generator=generator, device=target.device)
+            noise = draw_rows(lambda m, g: torch.randn(m, *target.shape[1:], generator=g,
+                                                       device=dev), N, generator, blocks)
         net = self._apply_net(domain_id)
         if dim_mask is not None:
             base = net
@@ -300,7 +306,7 @@ class DiffLoss(nn.Module):
         loss = out["loss"]
         if mask is None:
             return loss.mean()
-        return (loss * mask).sum() / (mask.sum() + 1e-8)
+        return (loss * mask).sum() / (global_count(mask.sum(), group) + 1e-8)
 
     @torch.no_grad()
     def sample(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -325,6 +331,9 @@ class DiffLoss(nn.Module):
         net = self._apply_net(domain_id)
         C = self.target_channels
         noise, n_half = self._start_noise(z, generator, cfg, noise)
+        if zs is None:  # the per-step normals, drawn in loop order as the loop would
+            zs = pregenerate_noises(generator, self.gen_sched.num_timesteps, z.shape[0], C,
+                                    z.device, 2 if n_half else 1)
         if n_half:
             n = n_half
 
@@ -348,7 +357,8 @@ class DiffLoss(nn.Module):
         n_half = z.shape[0] // 2 if cfg != 1.0 else 0
         rows = n_half or z.shape[0]
         if noise is None:
-            noise = torch.randn(rows, C, generator=generator, device=z.device)
+            noise = draw_rows(lambda m, g: torch.randn(m, C, generator=g, device=z.device),
+                              rows, generator)
         if tuple(noise.shape) != (rows, C):
             raise ValueError(f"noise must be {(rows, C)}, got {tuple(noise.shape)}")
         noise = noise.float()
@@ -394,7 +404,7 @@ class DiffLoss(nn.Module):
         N, C, K = z.shape[0], self.target_channels, sched.num_timesteps
         noise, n_half = self._start_noise(z, generator, cfg, noise)
         if zs is None:
-            zs = pregenerate_noises(generator, K, N, C, z.device)
+            zs = pregenerate_noises(generator, K, N, C, z.device, 2 if n_half else 1)
         mods_cat = torch.cat(list(mods["blocks"]) + [mods["final"]], dim=-1)
         fc, tbl, packed = self._loop_kernel_inputs(domain_id, z.device)
         return fused_denoise_loop(

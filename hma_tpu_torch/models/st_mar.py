@@ -39,6 +39,7 @@ from hma_tpu_torch.models.action_stems import (
 from hma_tpu_torch.models.attention import Dense, LayerNorm
 from hma_tpu_torch.models.diffloss import DiffLoss
 from hma_tpu_torch.models.st_transformer import STTransformerDecoder
+from hma_tpu_torch.parallel.distributed import draw_rows
 
 
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -200,7 +201,7 @@ class STMAR(nn.Module):
                 action_ids: Optional[torch.Tensor] = None, domain_id: int = 0,
                 masked_tokens_indicator: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, dropout=None,
-                draws: Optional[dict] = None) -> dict:
+                draws: Optional[dict] = None, group=None) -> dict:
         """Diffusion training loss over the masked patch rows.
 
         input_ids/labels: (B, T, h, w, C) float latents (already times
@@ -215,7 +216,9 @@ class STMAR(nn.Module):
         the action head's rows.
 
         Returns {"loss", "acc" (0)} and, on joint cards with actions,
-        "action_loss" and "actions" (the pooled action latents).
+        "action_loss" and "actions" (the pooled action latents). group: a
+        data-parallel process group holding the rest of the global batch;
+        the masked means' counts are then the global batch's.
         """
         cfg = self.config
         B, T = input_ids.shape[:2]
@@ -232,7 +235,8 @@ class STMAR(nn.Module):
         if action_ids is not None and cfg.jointly_predict_actions:
             t0 = draws.get("action_t0")
             if t0 is None:
-                t0 = torch.randint(0, T, (B,), generator=generator, device=dev)
+                t0 = draw_rows(lambda m, g: torch.randint(0, T, (m,), generator=g,
+                                                          device=dev), B, generator)
             action_mask = (torch.arange(T, device=dev)[None, :] >= t0.reshape(B, 1))
             action_mask = action_mask.to(self.dtype)[..., None, None]
 
@@ -247,7 +251,8 @@ class STMAR(nn.Module):
         if mul > 1:
             rows_z, rows_t, rows_m = rows_z.repeat(mul, 1), rows_t.repeat(mul, 1), rows_m.repeat(mul)
         loss = self.diffloss.loss(rows_t, rows_z, rows_m, generator=generator,
-                                  t=draws.get("t"), noise=draws.get("noise"))
+                                  t=draws.get("t"), noise=draws.get("noise"), group=group,
+                                  blocks=mul)
         out = {"loss": loss, "acc": torch.zeros((), device=dev)}
         if action_latents is not None and action_ids is not None:
             dim_mask = (torch.arange(cfg.max_d_action, device=dev)
@@ -260,7 +265,8 @@ class STMAR(nn.Module):
                 a_rows_m = a_rows_m.repeat(mul)
             out["action_loss"] = self.action_diff_loss.loss(
                 a_rows_t, a_rows_z, a_rows_m, domain_id, dim_mask, generator,
-                t=draws.get("action_t"), noise=draws.get("action_noise"))
+                t=draws.get("action_t"), noise=draws.get("action_noise"), group=group,
+                blocks=mul)
             out["actions"] = action_latents
         return out
 

@@ -38,6 +38,7 @@ from hma_tpu_torch.models.action_stems import (
 from hma_tpu_torch.models.attention import Dense
 from hma_tpu_torch.models.factorization import FactorizedEmbedding, factorize_labels
 from hma_tpu_torch.models.st_transformer import STTransformerDecoder
+from hma_tpu_torch.parallel.distributed import draw_rows, global_count
 
 LABEL_SMOOTHING = 0.01
 
@@ -193,7 +194,7 @@ class STMaskGIT(nn.Module):
     def forward(self, input_ids: torch.Tensor, labels: torch.Tensor,
                 action_ids: Optional[torch.Tensor] = None, domain_id: int = 0,
                 dropout=None, generator: Optional[torch.Generator] = None,
-                action_mask: Optional[torch.Tensor] = None):
+                action_mask: Optional[torch.Tensor] = None, group=None):
         """Masked-token factored cross-entropy and exact-token accuracy, and
         on joint cards with actions the masked action MSE.
 
@@ -208,21 +209,28 @@ class STMaskGIT(nn.Module):
         0-d fp32 tensors, and on joint cards with actions "action_loss" (the
         MSE against the raw actions over the real action dims of the dropped
         frames, divided by B T d_action) and "actions" (action_pred).
+        group: a data-parallel process group holding the rest of the global
+        batch; every denominator is then summed over its ranks
+        (`distributed.global_count`), so the losses are this rank's shares
+        of the global-batch means.
         """
         cfg = self.config
         B, T, S = input_ids.shape
         h = w = math.isqrt(S)
         dev = input_ids.device
         if action_ids is not None and cfg.jointly_predict_actions and action_mask is None:
-            drop_ratio = torch.rand(B, 1, 1, generator=generator, device=dev)
-            action_mask = torch.rand(B, T, 1, generator=generator, device=dev) < drop_ratio
+            drop_ratio = draw_rows(
+                lambda m, g: torch.rand(m, 1, 1, generator=g, device=dev), B, generator)
+            action_mask = draw_rows(
+                lambda m, g: torch.rand(m, T, 1, generator=g, device=dev), B,
+                generator) < drop_ratio
             action_mask = action_mask[..., None].to(self.dtype)
         logits_CTHW, action_pred = self.compute_logits(input_ids, action_ids, domain_id,
                                                        action_mask, dropout)
         if logits_CTHW is not None:
             relevant = input_ids.reshape(B, T, h, w)[:, 1:] == self.mask_token_id
             loss, acc = self.compute_video_loss_and_acc(
-                logits_CTHW, labels.reshape(B, T, h, w), relevant)
+                logits_CTHW, labels.reshape(B, T, h, w), relevant, group)
             out = {"loss": loss, "acc": acc}
         else:
             out = {"loss": torch.zeros((), device=dev), "acc": torch.zeros((), device=dev)}
@@ -231,16 +239,18 @@ class STMaskGIT(nn.Module):
                          < cfg.d_actions[domain_id]).float()
             err = (action_pred - action_ids) ** 2 * dim_valid
             masked = err * action_mask[..., 0].float()
-            out["action_loss"] = masked.sum() / torch.clamp(B * T * dim_valid.sum(), min=1.0)
+            out["action_loss"] = masked.sum() / torch.clamp(
+                global_count(B * T * dim_valid.sum(), group), min=1.0)
             out["actions"] = action_pred
         return out
 
     def compute_video_loss_and_acc(self, logits_CTHW: torch.Tensor,
                                    targets_THW: torch.Tensor,
-                                   relevant_mask_THW: torch.Tensor):
+                                   relevant_mask_THW: torch.Tensor, group=None):
         """Factored CE with label smoothing 0.01 and exact-token accuracy,
         averaged over the relevant (masked) tokens of frames 1..; logits
-        (B, nv*fv, T, H, W), targets (B, T, H, W), mask (B, T-1, H, W)."""
+        (B, nv*fv, T, H, W), targets (B, T, H, W), mask (B, T-1, H, W).
+        With `group`, the count is the global batch's."""
         cfg = self.config
         fv, nv = cfg.factored_vocab_size, cfg.num_factored_vocabs
         logits = logits_CTHW[:, :, 1:]
@@ -255,7 +265,7 @@ class STMaskGIT(nn.Module):
         loss_THW = ce.sum(1)  # over the factored vocabs
         acc_THW = (fl.argmax(2) == ft).all(1)
         m = relevant_mask_THW.float()
-        num = torch.clamp(m.sum(), min=1.0)
+        num = torch.clamp(global_count(m.sum(), group), min=1.0)
         return (loss_THW * m).sum() / num, (acc_THW * m).sum() / num
 
     def init_cache(self, batch_size: int, with_actions: bool = True):

@@ -43,11 +43,13 @@ from torch.utils.checkpoint import checkpoint
 
 from hma_tpu_torch.models.action_stems import DomainCrossAttention, DomainModulate
 from hma_tpu_torch.models.attention import Dense, LayerNorm, SelfAttention
+from hma_tpu_torch.parallel.distributed import RankRows, draw_rows, source
 
 
 # One block's MLP dropout: None (deterministic), an int seed from which
-# both masks are drawn, or the two boolean keep-masks (hidden, output).
-BlockDropout = Union[None, int, Sequence[torch.Tensor]]
+# both masks are drawn (or a `RankRows` of one: a data-parallel rank's rows
+# of them), or the two boolean keep-masks (hidden, output).
+BlockDropout = Union[None, int, RankRows, Sequence[torch.Tensor]]
 
 
 def _dropout(x: torch.Tensor, keep: float, mask: torch.Tensor) -> torch.Tensor:
@@ -74,9 +76,12 @@ class Mlp(nn.Module):
         if dropout is None or self.mlp_drop == 0.0:
             return self.fc2(h)
         keep = 1.0 - self.mlp_drop
-        if isinstance(dropout, int):
-            g = torch.Generator(x.device).manual_seed(dropout)
-            masks = [torch.rand(shape, generator=g, device=x.device) < keep
+        if isinstance(source(dropout), int):
+            g = torch.Generator(x.device).manual_seed(source(dropout))
+            if isinstance(dropout, RankRows):
+                g = dropout._replace(source=g)
+            masks = [draw_rows(lambda m, g, s=shape: torch.rand(
+                         (m, *s[1:]), generator=g, device=x.device), shape[0], g) < keep
                      for shape in (h.shape, (*h.shape[:-1], self.fc2.out_features))]
         else:
             masks = dropout
@@ -255,15 +260,18 @@ class STTransformerDecoder(nn.Module):
 
     def forward(self, x_TSC: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
                 domain_id: int = 0,
-                dropout: Union[None, torch.Generator, Sequence[BlockDropout]] = None
+                dropout: Union[None, torch.Generator, RankRows, Sequence[BlockDropout]] = None
                 ) -> torch.Tensor:
-        """dropout: None (deterministic), a generator (one seed per block is
-        drawn from it, on its device, before the blocks run) or one
-        `BlockDropout` per block."""
+        """dropout: None (deterministic), a generator or a `RankRows` of one
+        (one seed per block is drawn from it, on its device, before the
+        blocks run) or one `BlockDropout` per block."""
         remat = self.remat and torch.is_grad_enabled()
-        if isinstance(dropout, torch.Generator):
-            dropout = torch.randint(0, 2**62, (len(self.layers),), generator=dropout,
-                                    device=dropout.device).tolist()
+        if isinstance(source(dropout), torch.Generator):
+            g = source(dropout)
+            seeds = torch.randint(0, 2**62, (len(self.layers),), generator=g,
+                                  device=g.device).tolist()
+            dropout = [dropout._replace(source=s) if isinstance(dropout, RankRows) else s
+                       for s in seeds]
         for i, layer in enumerate(self.layers):
             drop = None if dropout is None else dropout[i]
             if remat:

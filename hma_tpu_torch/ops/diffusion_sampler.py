@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from hma_tpu_torch.ops._build import launch_denoise_loop
+from hma_tpu_torch.parallel.distributed import draw_rows
 
 LN_EPS = 1e-6
 MAX_C = 64  # K6' takes C <= MAX_C and H a multiple of 128 up to MAX_H:
@@ -262,11 +263,12 @@ fused_denoise_loop.launches = 0
 
 
 def pregenerate_noises(generator: Optional[torch.Generator], K: int, N: int,
-                       C: int, device) -> torch.Tensor:
+                       C: int, device, blocks: int = 1) -> torch.Tensor:
     """The per-step normals (K, N, C) fp32 in loop order, one draw of (N, C)
-    per step as `p_sample_loop` makes them."""
-    return torch.stack([torch.randn(N, C, generator=generator, device=device)
-                        for _ in range(K)])
+    per step as `p_sample_loop` makes them; the N rows are `blocks` blocks
+    of the batch's (2 under cfg: [cond | uncond]; `distributed.draw_rows`)."""
+    draw = lambda m, g: torch.randn(m, C, generator=g, device=device)
+    return torch.stack([draw_rows(draw, N, generator, blocks) for _ in range(K)])
 
 
 def schedule_table(sched) -> np.ndarray:

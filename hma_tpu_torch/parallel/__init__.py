@@ -1,4 +1,3 @@
-"""Distributed runtime and sharded evaluation (counterpart of
-hma_tpu/parallel), reduced to one process on one device: the helpers keep
-`hma_tpu`'s names and call sites, and anything above one device raises
-(ROADMAP.md Queue A, item 10: multi-GPU)."""
+"""Distributed runtime, device mesh and sharded evaluation (counterpart of
+hma_tpu/parallel): one process a card, data parallelism over the "dp"
+axis; fsdp, tp and sp raise (ROADMAP.md Queue A items 10b and 10c)."""

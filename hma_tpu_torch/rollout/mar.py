@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from hma_tpu_torch.models.st_mar import STMAR, patchify, unpatchify
+from hma_tpu_torch.parallel.distributed import draw_rows
 
 
 def mar_subset_schedule(seq_len: int, steps: int,
@@ -80,8 +81,8 @@ def _orders(generator, draws: Optional[dict], B: int, S: int, device) -> torch.T
         if tuple(order.shape) != (B, S):
             raise ValueError(f"orders must be {(B, S)}, got {tuple(order.shape)}")
         return order
-    return torch.stack([torch.randperm(S, generator=generator, device=device)
-                        for _ in range(B)])
+    return draw_rows(lambda m, g: torch.stack(
+        [torch.randperm(S, generator=g, device=device) for _ in range(m)]), B, generator)
 
 
 def _reveal(model: STMAR, frame: torch.Tensor, z: torch.Tensor, order: torch.Tensor,

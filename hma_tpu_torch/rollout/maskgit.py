@@ -33,21 +33,27 @@ import torch
 
 from hma_tpu_torch.models.schedules import maskgit_mask_counts
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
+from hma_tpu_torch.parallel.distributed import draw_rows
 
 
 def _sample_factored(logits_SNF: torch.Tensor, generator: Optional[torch.Generator],
                      temperature: float, factored_vocab_size: int):
     """Token ids (B, S) and confidences (B, S) from factored logits
     (B, S, nv, fv) fp32; confidence = product over factors of the sampled
-    prob, ids = sum_k id_k * fv**k."""
+    prob, ids = sum_k id_k * fv**k. A sample is argmax(p / q), q ~ Exp(1) a
+    row: what torch.multinomial draws for one sample, here through
+    `distributed.draw_rows`."""
     B, S, nv, fv = logits_SNF.shape
     probs = torch.softmax(logits_SNF, dim=-1)
     if temperature <= 1e-8:
         samples = torch.argmax(probs, dim=-1)
     else:
         tempered = torch.softmax(logits_SNF / temperature, dim=-1)
-        samples = torch.multinomial(tempered.reshape(-1, fv), 1,
-                                    generator=generator).view(B, S, nv)
+        rows = tempered.reshape(-1, fv)
+        q = draw_rows(lambda m, g: torch.empty((m, fv), dtype=rows.dtype,
+                                               device=rows.device).exponential_(generator=g),
+                      len(rows), generator)
+        samples = torch.argmax(rows / q, dim=-1).view(B, S, nv)
     conf = torch.gather(probs, -1, samples[..., None])[..., 0]
     powers = factored_vocab_size ** torch.arange(nv, device=samples.device)
     return (samples * powers).sum(-1), conf.prod(-1)
@@ -72,8 +78,9 @@ def _remask(logits: torch.Tensor, prev: torch.Tensor, unmasked: torch.Tensor,
     if unmask_mode == "greedy":
         conf = confidence
     elif unmask_mode == "random":
-        conf = draw if draw is not None else torch.rand(
-            confidence.shape, generator=generator, device=confidence.device)
+        conf = draw if draw is not None else draw_rows(
+            lambda m, g: torch.rand((m, *confidence.shape[1:]), generator=g,
+                                    device=confidence.device), len(confidence), generator)
     else:
         raise NotImplementedError(unmask_mode)
     conf = torch.where(unmasked, torch.inf, conf)

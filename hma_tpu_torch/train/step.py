@@ -30,13 +30,27 @@ STMaskGIT's action drop (joint cards), and one
 on the CPU for the trunk's dropout seeds (one per block, so drawing them
 never waits for the card). The tests hand the draws in instead (`draws`).
 
-Parameters, moments and grads are fp32 and are updated in place. The
-stacked tables' grads arrive full-size from autograd and are read at row
-`d`; JAX's `sliced_grads` lever (grads for one row only) is not ported.
+Parameters, moments and grads are fp32 and are updated in place. With
+`stacked_mask` (sliced gradients, `hma_tpu`'s `make_train_step(stacked_mask=)`)
+the step swaps every domain-stacked table for a one-row leaf, a view of the
+active domain's row, for the forward and backward: autograd forms (1, ...)
+grads and never a full-size one, and the stacked tables hold no `.grad`.
+Without it the stacked tables' grads arrive full-size and are read at row
+`d`.
+
+Data parallelism (`group`, a process group whose ranks hold the rest of the
+global batch): every loss denominator is summed over the ranks before the
+division (`distributed.global_count`), so each rank's loss is its share of
+the global-batch mean and the gradients (row grads too) and metrics are
+summed over the ranks; the NaN guard then decides the same on every rank.
+A rank draws its rows of the global batch's dropout masks, diffusion noise
+and action drops (`generators`), so that N ranks take the step one process
+takes on the whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Union
 
@@ -46,6 +60,7 @@ from torch import nn
 
 from hma_tpu_torch.models.action_stems import DomainLayerNorm
 from hma_tpu_torch.models.attention import LayerNorm
+from hma_tpu_torch.parallel.distributed import all_reduce_sum_, rank_rows
 from hma_tpu_torch.train.lowp import (
     DENSE_TAG,
     SLICED_TAG,
@@ -230,7 +245,9 @@ class DomainSlicedAdamW(AdamW):
     the dense (shared) parameters take the plain AdamW update. The global
     count drives the LR schedule and the dense Adam count alike. One clip
     covers the dense grads and the active rows (the full-tree norm: the
-    other rows' grads are exactly zero)."""
+    other rows' grads are exactly zero). A stacked table's grad may arrive
+    full-size or as the active row alone, with a leading axis of 1 (the
+    sliced-gradient step), as `hma_tpu`'s takes it."""
 
     def __init__(self, params, learning_rate, weight_decay, beta1, beta2, eps,
                  max_grad_norm, decay, *, stacked: dict[str, bool],
@@ -238,7 +255,13 @@ class DomainSlicedAdamW(AdamW):
         super().__init__(params, learning_rate, weight_decay, beta1, beta2, eps,
                          max_grad_norm, decay, **kw)
         self.stacked = stacked
+        self.num_domains = num_domains
         self.domain_count = [0] * num_domains
+
+    def _row(self, g: torch.Tensor, d: int) -> torch.Tensor:
+        """Row d of a stacked table's grad: index 0 of a one-row grad (with
+        one domain the two coincide), else row d."""
+        return g[0] if g.shape[0] == 1 and self.num_domains != 1 else g[d]
 
     def step(self, params: dict, grads: dict, domain_id: int,
              ok_loss: torch.Tensor, noise: Optional[dict] = None) -> torch.Tensor:
@@ -246,7 +269,7 @@ class DomainSlicedAdamW(AdamW):
         leaves' bits are drawn from the global count after this update, the
         rows' from it before, as `hma_tpu` keys them."""
         d = int(domain_id)
-        rows = {n: (g[d] if self.stacked[n] else g) for n, g in grads.items()}
+        rows = {n: (self._row(g, d) if self.stacked[n] else g) for n, g in grads.items()}
         g_norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g) for g in rows.values()]))
         ok = ok_loss & torch.isfinite(g_norm)
@@ -313,25 +336,30 @@ def make_domain_sliced_optimizer(model: nn.Module, learning_rate,
                              **_mup_kw(model, mup_width_mult, mup_base, moment_dtype))
 
 
-def generators(rng: int, part: int, device) -> tuple:
+def generators(rng: int, part: int, device, group=None) -> tuple:
     """(device generator, CPU generator) of (micro)batch `part` of the step
-    keyed by `rng`: seeds from numpy's SeedSequence of (rng, part)."""
+    keyed by `rng`: seeds from numpy's SeedSequence of (rng, part). With a
+    data-parallel `group`, each is a `distributed.RankRows`: a rank draws
+    its rows of the global (micro)batch's dropout masks, diffusion noise and
+    action drops, so that the ranks draw what one process draws."""
     a, b = np.random.SeedSequence([int(rng), int(part)]).generate_state(2, np.uint64)
-    return (torch.Generator(device).manual_seed(int(a) >> 1),
-            torch.Generator("cpu").manual_seed(int(b) >> 1))
+    return (rank_rows(torch.Generator(device).manual_seed(int(a) >> 1), group),
+            rank_rows(torch.Generator("cpu").manual_seed(int(b) >> 1), group))
 
 
 def _loss(model: nn.Module, batch: dict, continuous: bool, action_loss_weight: float,
-          generator=None, dropout=None, draws=None):
-    """(loss to differentiate, detached metrics) of one (micro)batch."""
+          generator=None, dropout=None, draws=None, group=None):
+    """(loss to differentiate, detached metrics) of one (micro)batch; with
+    `group`, this rank's share of the global-batch loss."""
     args = (batch["input_ids"], batch["labels"], batch.get("action_ids"),
             batch.get("domain_id", 0))
+    kw = {} if group is None else {"group": group}
     if continuous:
         out = model(*args, batch["masked_tokens_indicator"], generator=generator,
-                    dropout=dropout, draws=draws)
+                    dropout=dropout, draws=draws, **kw)
     else:
         out = model(*args, dropout=dropout, generator=generator,
-                    action_mask=(draws or {}).get("action_mask"))
+                    action_mask=(draws or {}).get("action_mask"), **kw)
     loss = out["loss"]
     metrics = {"loss": out["loss"].detach(), "acc": out["acc"].detach()}
     if "action_loss" in out:
@@ -340,8 +368,43 @@ def _loss(model: nn.Module, batch: dict, continuous: bool, action_loss_weight: f
     return loss, metrics
 
 
+def _sum_metrics(metrics: dict, group) -> dict:
+    """Each rank's metric shares summed over `group` (one all_reduce)."""
+    keys = sorted(metrics)
+    flat = torch.stack([metrics[k].float() for k in keys])
+    all_reduce_sum_([flat], group)
+    return dict(zip(keys, flat.unbind()))
+
+
+def table_owners(model: nn.Module, names: list) -> list:
+    """[(name, module, leaf)] of each parameter `names`: the module that
+    holds it and its name there, found once."""
+    return [(n, model.get_submodule(n.rpartition(".")[0]), n.rpartition(".")[2])
+            for n in names]
+
+
+@contextlib.contextmanager
+def domain_rows(owners: list, d: int):
+    """Within the block, each stacked table of `owners` (`table_owners`) is a
+    one-row leaf: an `nn.Parameter` on a view of row d (no copy), which
+    `take_domain` reads as the domain's row. Yields {name: row leaf}; the
+    tables come back on exit, with no `.grad`."""
+    swapped = []
+    try:
+        for n, mod, leaf in owners:
+            full = mod._parameters[leaf]
+            row = nn.Parameter(full.detach()[d:d + 1])
+            mod._parameters[leaf] = row
+            swapped.append((mod, leaf, full, n, row))
+        yield {n: row for _, _, _, n, row in swapped}
+    finally:
+        for mod, leaf, full, _, _ in swapped:
+            mod._parameters[leaf] = full
+
+
 def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
-                    continuous: bool = False, action_loss_weight: float = 0.5
+                    continuous: bool = False, action_loss_weight: float = 0.5,
+                    stacked_mask: Optional[dict[str, bool]] = None, group=None
                     ) -> Callable:
     """train_step(batch, rng=0, draws=None) -> metrics, updating the model and
     `tx` in place.
@@ -356,45 +419,71 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
     plus "dropout": one `BlockDropout` per block). Metrics: 0-d tensors loss, acc (and
     action_loss on joint cards), grad_norm and skipped (1.0 when the NaN
     guard dropped the update).
+
+    stacked_mask (`domain_stacked_mask`, with the domain-sliced `tx`): sliced
+    gradients, grads for the active domain's row of each stacked table
+    only (`domain_rows`). group: the data-parallel process group (see the
+    module docstring); batch is then this rank's rows of the global batch.
     """
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
+    stacked = []
+    if stacked_mask is not None:
+        if not isinstance(tx, DomainSlicedAdamW):
+            raise ValueError("sliced gradients need the domain-sliced optimizer "
+                             "(make_domain_sliced_optimizer)")
+        if stacked_mask != tx.stacked:
+            raise ValueError("stacked_mask differs from the optimizer's stacked tables")
+        stacked = table_owners(model, [n for n, s in stacked_mask.items() if s])
 
     def loss_of(chunk: dict, part: int, rng: int, draws: Optional[dict]):
-        gen, dropout = generators(rng, part, device)
+        gen, dropout = generators(rng, part, device, group)
         draws = dict(draws or {})
         dropout = draws.pop("dropout", dropout)
-        return _loss(model, chunk, continuous, action_loss_weight, gen, dropout, draws)
+        return _loss(model, chunk, continuous, action_loss_weight, gen, dropout, draws,
+                     group)
 
-    def train_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
-        for p in params.values():
-            p.grad = None
+    def backward(batch: dict, rng: int, draws: Optional[dict], leaves: dict) -> dict:
+        """Grads into `leaves`' .grad (averaged over the chunks); metrics."""
         if microbatch <= 0:
             loss, metrics = loss_of(batch, 0, rng, draws)
             loss.backward()
-        else:
-            if draws:
-                raise ValueError("draws are handed in for a whole batch only")
-            B = batch["input_ids"].shape[0]
-            n = B // microbatch
-            metrics = {}
-            for i in range(n):
-                chunk = {k: (v[i * microbatch:(i + 1) * microbatch]
-                             if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == B
-                             else v) for k, v in batch.items()}
-                loss, m = loss_of(chunk, i, rng, None)
-                loss.backward()
-                metrics = {k: metrics.get(k, 0) + v for k, v in m.items()}
-            for p in params.values():
-                if p.grad is not None:
-                    p.grad.mul_(1.0 / n)
-            metrics = {k: v * (1.0 / n) for k, v in metrics.items()}
+            return metrics
+        if draws:
+            raise ValueError("draws are handed in for a whole batch only")
+        B = batch["input_ids"].shape[0]
+        n = B // microbatch
+        metrics = {}
+        for i in range(n):
+            chunk = {k: (v[i * microbatch:(i + 1) * microbatch]
+                         if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == B
+                         else v) for k, v in batch.items()}
+            loss, m = loss_of(chunk, i, rng, None)
+            loss.backward()
+            metrics = {k: metrics.get(k, 0) + v for k, v in m.items()}
+        for p in leaves.values():
+            if p.grad is not None:
+                p.grad.mul_(1.0 / n)
+        return {k: v * (1.0 / n) for k, v in metrics.items()}
+
+    def train_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
+        d = int(batch.get("domain_id", 0))
+        for p in params.values():
+            p.grad = None
+        with domain_rows(stacked, d) as rows:
+            # the tensors autograd differentiates: the dense parameters and
+            # the stacked tables' rows
+            leaves = {**params, **rows}
+            metrics = backward(batch, rng, draws, leaves)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params.items()}
+                 for n, p in leaves.items()}
+        if group is not None:
+            all_reduce_sum_(list(grads.values()), group)
+            metrics = _sum_metrics(metrics, group)
         ok_loss = torch.isfinite(metrics["loss"])
         with torch.no_grad():
-            g_norm = tx.step(params, grads, batch.get("domain_id", 0), ok_loss)
-        for p in params.values():
+            g_norm = tx.step(params, grads, d, ok_loss)
+        for p in leaves.values():
             p.grad = None
         ok = ok_loss & torch.isfinite(g_norm)
         return {**metrics, "grad_norm": g_norm, "skipped": 1.0 - ok.float()}
@@ -403,18 +492,22 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
 
 
 def make_eval_step(model: nn.Module, *, continuous: bool = False,
-                   action_loss_weight: float = 0.5) -> Callable:
+                   action_loss_weight: float = 0.5, group=None) -> Callable:
     """eval_step(batch, rng=0, draws=None) -> {loss, acc, perplexity} (and
     action_loss on joint cards): teacher-forced, deterministic (no dropout),
     no grad; the diffusion draws and the action drop of joint cards come
     from `generators(rng, 0)` (so they differ between eval batches) or
-    `draws`."""
+    `draws`. With `group` (data parallelism) the metrics are the global
+    batch's, the same on every rank."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
-        gen = generators(rng, 0, device)[0]
-        _, metrics = _loss(model, batch, continuous, action_loss_weight, gen, None, draws)
+        gen = generators(rng, 0, device, group)[0]
+        _, metrics = _loss(model, batch, continuous, action_loss_weight, gen, None, draws,
+                           group)
+        if group is not None:
+            metrics = _sum_metrics(metrics, group)
         return {**metrics, "perplexity": torch.exp(metrics["loss"])}
 
     return eval_step

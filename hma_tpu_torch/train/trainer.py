@@ -1,20 +1,20 @@
 """Multi-dataset training loop (counterpart of hma_tpu/train/trainer.py).
 
-Both families on one device: per-domain memmap datasets from a datasplit
-file (`{domain}_magvit_max1000000_{split}` token sets for the discrete
-STMaskGIT, `{domain}_vae_max1000000_{split}` latent sets for the continuous
-STMAR), temperature-weighted batch sampling, the training step of
-`train/step.py`, periodic teacher-forced eval, a token-match rollout eval
-(discrete only, as in `hma_tpu`) and checkpointing with bit-exact resume
-(the sampler position is replayed, each step's collate RNG is derived from
-(seed, step) and its training draws from the step number). The model runs
-in bf16 on the card and in fp32 on the CPU; parameters and optimizer state
-are fp32 on both. With a MagVit2 checkpoint (`--tokenizer_checkpoint`, a
-`.ckpt` or a `train_tokenizer` directory) the discrete rollout eval also
-decodes prediction and ground truth to pixels and reports their PSNR, and
-with `--lpips_weights` (an AlexNet LPIPS state dict) their LPIPS. With
-`--use_native_loader` the batches come from the C++ loader
-(`data/native_loader.py`), one per domain, resumed bit for bit.
+Both families, on one card or data-parallel over processes: per-domain
+memmap datasets from a datasplit file (`{domain}_magvit_max1000000_{split}`
+token sets for the discrete STMaskGIT, `{domain}_vae_max1000000_{split}`
+latent sets for the continuous STMAR), temperature-weighted batch sampling,
+the training step of `train/step.py`, periodic teacher-forced eval, a
+token-match rollout eval (discrete only, as in `hma_tpu`) and checkpointing
+with bit-exact resume (the sampler position is replayed, each step's
+collate RNG is derived from (seed, step) and its training draws from the
+step number). The model runs in bf16 on the card and in fp32 on the CPU;
+parameters and optimizer state are fp32 on both. With a MagVit2 checkpoint
+(`--tokenizer_checkpoint`, a `.ckpt` or a `train_tokenizer` directory) the
+discrete rollout eval also decodes prediction and ground truth to pixels
+and reports their PSNR, and with `--lpips_weights` (an AlexNet LPIPS state
+dict) their LPIPS. With `--use_native_loader` the batches come from the C++
+loader (`data/native_loader.py`), one per domain, resumed bit for bit.
 `--mu_transfer` trains with muP (width mult d_model / 256, the matrix-like
 parameters found against the card at half its head dim), and
 `--adam_moment_dtype bfloat16` keeps Adam's moments in bf16 with stochastic
@@ -22,8 +22,21 @@ rounding; checkpoints hold them in bf16. `--lr_scheduler_type` other than
 "custom_cosine" gives optax's warmup cosine decay to 0, as in `hma_tpu`
 (whatever the name says: "linear" too).
 
-Not ported (they raise): the mesh and multi-host, JAX's `sliced_grads`
-lever and wandb.
+Sliced gradients (`--sliced_grads`, `train/step.py`): "auto" turns them on
+when the domain-sliced AdamW is active and the world is one process, as
+`hma_tpu` does with no mesh; "on" and "off" force them.
+
+Data parallelism (the mesh's "dp" axis, `parallel/`): launched with
+torchrun (or `hma_tpu`'s HMA_TPU_* variables), one process a card. The
+global batch is the per-device batch times the world size and the LR scales
+by the effective batch; every rank runs the same sampler stream (so every
+rank trains the same domain), loads and collates its rows of each global
+batch, draws its rows of the batch's random draws, and the step sums the
+gradients over the ranks (the loss is the global batch's mean), so that N
+ranks train as one process on the global batch. Parameters and moments are replicated; rank 0 logs
+and writes the checkpoints, every rank reads them. Not ported (they raise):
+fsdp, tp, sp above 1 (ROADMAP.md Queue A items 10b, 10c), the native loader
+with more than one process, as in `hma_tpu`, and wandb.
 """
 
 from __future__ import annotations
@@ -40,7 +53,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hma_tpu_torch import resolve_device
 from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig, load_config
 from hma_tpu_torch.data.collators import maskgit_collate, maskgit_collate_feature
 from hma_tpu_torch.data.datasets import RawFeatureDataset, RawTokenDataset
@@ -49,6 +61,8 @@ from hma_tpu_torch.metrics.image import batch_psnr
 from hma_tpu_torch.metrics.lpips import make_lpips_fn
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
+from hma_tpu_torch.parallel import distributed
+from hma_tpu_torch.parallel.mesh import check_factors, make_mesh
 from hma_tpu_torch.rollout.decode import make_token_decoder
 from hma_tpu_torch.rollout.maskgit import generate_tokens
 from hma_tpu_torch.tokenizer.convert import load_magvit2
@@ -123,7 +137,9 @@ class TrainArgs:
     lpips_weights: Optional[str] = None
     domain_sliced_adam: bool = True
     adam_moment_dtype: str = "float32"
-    sliced_grads: str = "auto"  # "auto" and "off" mean off here; "on" raises
+    # sliced gradients: "auto" = on with the domain-sliced AdamW and one
+    # process, "on" / "off" force them
+    sliced_grads: str = "auto"
     device: Optional[str] = None
 
 
@@ -131,9 +147,7 @@ def _refuse_unported(args: TrainArgs) -> None:
     if args.model_type not in ("discrete", "continuous"):
         raise ValueError(f"--model_type {args.model_type}")
     unported = {
-        "a device mesh (--dp/--fsdp/--tp/--sp)":
-            (args.dp or 1) * args.fsdp * args.tp * args.sp > 1,
-        "--sliced_grads on": args.sliced_grads == "on",
+        "--fsdp/--tp/--sp above 1 (items 10b, 10c)": max(args.fsdp, args.tp, args.sp) > 1,
         "--report_to wandb": args.report_to == "wandb",
     }
     asked = [k for k, v in unported.items() if v]
@@ -239,16 +253,18 @@ class BatchAssembler:
         self.rng = rng
         self.discrete = discrete
 
-    def __call__(self, global_indices: np.ndarray, step: Optional[int] = None) -> dict:
+    def __call__(self, global_indices: np.ndarray, step: Optional[int] = None,
+                 rows: Optional[np.ndarray] = None) -> dict:
         """A training call passes `step`: the collate RNG is then derived
         from (seed, step), so a resumed run collates step k as a straight
-        run does."""
+        run does. `rows`: the positions in `global_indices` this process
+        loads (data parallelism); the collate draws for the whole batch."""
         ds_idx = int(np.searchsorted(self.offsets, global_indices[0], side="right") - 1)
-        items = [self.datasets[ds_idx][int(i)]
-                 for i in global_indices - self.offsets[ds_idx]]
+        local = global_indices if rows is None else global_indices[rows]
+        items = [self.datasets[ds_idx][int(i)] for i in local - self.offsets[ds_idx]]
         rng = self.rng if step is None else np.random.default_rng([self.seed, int(step)])
         collate = maskgit_collate if self.discrete else maskgit_collate_feature
-        batch = collate(items, self.config, rng)
+        batch = collate(items, self.config, rng, rows, len(global_indices))
         B, T = len(items), self.config.T
         h, w = batch["h"][0], batch["w"][0]
         if self.discrete:
@@ -334,7 +350,17 @@ def mup_base_model(model, config: GenieConfig):
 def run_training(args: TrainArgs) -> dict:
     """Main loop; returns the metrics of the last log point."""
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    # a launcher's environment joins the process group before anything
+    # touches the card; the factors must fill the world exactly
+    multi = distributed.init_distributed(device=args.device)
+    world = distributed.process_count()
+    check_factors(args.dp, args.fsdp, args.tp, args.sp, world)
+    mesh = make_mesh(dp=args.dp) if multi else None
+    group = mesh.get_group("dp") if mesh is not None else None
+    if args.use_native_loader and world > 1:
+        raise ValueError("--use_native_loader is one process only: data-parallel "
+                         "ranks load their rows through the Python assembler")
+    device = distributed.local_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     config = load_config(args.genie_config)
     continuous = args.model_type == "continuous"
@@ -345,8 +371,11 @@ def run_training(args: TrainArgs) -> dict:
         build_domain_datasets(args, config))
     config = configure_model(args, config, domains, action_dims, action_stats, shared)
 
-    B = args.per_device_train_batch_size
+    B = args.per_device_train_batch_size * world  # the global batch a microbatch
     effective_batch = B * args.gradient_accumulation_steps
+    # this rank's rows of each effective batch: its share of every microbatch
+    rows = (None if world == 1 else np.concatenate(
+        [distributed.local_slice(r) for r in np.arange(effective_batch).reshape(-1, B)]))
     lr = scale_lr_by_batch(args.learning_rate, effective_batch)
     if args.overfit_first_batch:
         # one effective batch in all, reused for train and val
@@ -371,6 +400,8 @@ def run_training(args: TrainArgs) -> dict:
         config, dtype=dtype, device=device,
         generator=torch.Generator(device).manual_seed(args.seed),
         remat=args.grad_checkpointing)
+    if group is not None:  # every rank starts from rank 0's draw
+        distributed.broadcast_(list(model.parameters()), src=0, group=group)
     mup_mult = config.d_model / 256.0 if args.mu_transfer else None
     opt_kw = dict(learning_rate=schedule, weight_decay=args.weight_decay,
                   beta1=args.adam_beta_1, beta2=args.adam_beta_2, eps=args.adam_eps,
@@ -378,12 +409,15 @@ def run_training(args: TrainArgs) -> dict:
                   mup_base=(mup_base_model(model, config)
                             if mup_mult not in (None, 1.0) else None),
                   moment_dtype=args.adam_moment_dtype)
+    smask = None
     if args.domain_sliced_adam and config.num_domains > 1:
-        tx = make_domain_sliced_optimizer(
-            model, **opt_kw, stacked_mask=stacked_param_mask(model, config),
-            num_domains=config.num_domains)
+        smask = stacked_param_mask(model, config)
+        tx = make_domain_sliced_optimizer(model, **opt_kw, stacked_mask=smask,
+                                          num_domains=config.num_domains)
     else:
         tx = make_optimizer(model, **opt_kw)
+    sliced_grads = smask is not None and (
+        args.sliced_grads == "on" or (args.sliced_grads == "auto" and world == 1))
 
     start_step = 0
     resume = args.resume_from_checkpoint
@@ -407,9 +441,11 @@ def run_training(args: TrainArgs) -> dict:
             native_start_counts(sampler, steps_per_epoch, start_step, args.seed),
             not continuous)
 
-    microbatch = B if args.gradient_accumulation_steps > 1 else 0
-    step_kw = dict(continuous=continuous, action_loss_weight=config.action_loss_weight)
-    train_step = make_train_step(model, tx, microbatch=microbatch, **step_kw)
+    microbatch = args.per_device_train_batch_size if args.gradient_accumulation_steps > 1 else 0
+    step_kw = dict(continuous=continuous, action_loss_weight=config.action_loss_weight,
+                   group=group)
+    train_step = make_train_step(model, tx, microbatch=microbatch,
+                                 stacked_mask=smask if sliced_grads else None, **step_kw)
     eval_step = make_eval_step(model, **step_kw)
 
     # pixel-space visualisation of the discrete rollout eval
@@ -431,13 +467,17 @@ def run_training(args: TrainArgs) -> dict:
         "FLOPs_per_update_step": 6 * n_params * effective_batch * config.T * config.S,
         "num_datasets": len(domains),
         "device": str(device),
+        "world_size": world,
+        "process_group": None if group is None else torch.distributed.get_backend(group),
+        "sliced_grads_active": sliced_grads,
     }}
     ckpt_every = (int(args.checkpointing_steps)
                   if str(args.checkpointing_steps).isdigit() else None)
 
     def save(tag, **kw):
-        save_checkpoint(args.output_dir, tag, model.state_dict(), config,
-                        opt_state=tx.state_dict(), step=step_i, **kw)
+        if distributed.is_primary():  # the state is replicated: one writer
+            save_checkpoint(args.output_dir, tag, model.state_dict(), config,
+                            opt_state=tx.state_dict(), step=step_i, **kw)
 
     step_i = start_step
     # replay the epoch and intra-epoch sampler position of a resumed run
@@ -445,7 +485,8 @@ def run_training(args: TrainArgs) -> dict:
     t_last = time.time()
     last_metrics: dict = {}
     nan_streak = 0  # consecutive log points whose sampled step was skipped
-    with MetricLogger(args.output_dir, config=exp_config) as logger:
+    with MetricLogger(args.output_dir, config=exp_config,
+                      enabled=distributed.is_primary()) as logger:
         while step_i < max_steps:
             sampler.set_epoch(epoch)
             # the native path's domain draw: one generator an epoch
@@ -464,7 +505,7 @@ def run_training(args: TrainArgs) -> dict:
                     batch = native_batch(native_loaders[ds_idx].next_batch(), ds_idx,
                                          device, not continuous)
                 else:
-                    batch = assembler(indices, step=step_i)
+                    batch = assembler(indices, step=step_i, rows=rows)
                 # the step's draws are keyed by its number, as hma_tpu's
                 # PRNGKey(step): a resumed run draws what a straight one does
                 metrics = train_step(batch, rng=step_i)
@@ -497,7 +538,7 @@ def run_training(args: TrainArgs) -> dict:
                         step=step_i)
 
                 if (args.vis_every_n_steps and step_i % args.vis_every_n_steps == 0
-                        and step_i < max_steps and not continuous):
+                        and step_i < max_steps and not continuous and world == 1):
                     logger.log({f"vis/{k}": v for k, v in rollout_eval(
                         model, val_assembler, val_sets, args, config, vis_decode,
                         vis_lpips).items()}, step=step_i)
@@ -512,21 +553,25 @@ def run_training(args: TrainArgs) -> dict:
         save("final_checkpt")
     for loader in native_loaders or ():
         loader.close()
+    if group is not None:  # rank 0's checkpoint is whole before any rank returns
+        torch.distributed.barrier(group)
     return last_metrics
 
 
 def run_eval(eval_step, val_assembler: BatchAssembler, val_sets,
              args: TrainArgs) -> dict:
-    """Teacher-forced eval over up to `max_eval_steps` val batches."""
-    sampler = MultiTaskBatchSampler([len(d) for d in val_sets],
-                                    batch_size=args.per_device_eval_batch_size,
+    """Teacher-forced eval over up to `max_eval_steps` val batches of the
+    per-device batch times the world size, each rank on its rows."""
+    B = args.per_device_eval_batch_size * distributed.process_count()
+    rows = distributed.local_slice(np.arange(B)) if distributed.process_count() > 1 else None
+    sampler = MultiTaskBatchSampler([len(d) for d in val_sets], batch_size=B,
                                     temperature=4.0, seed=0)
     sums: dict = {}
     n = 0
     for i, indices in enumerate(sampler):
         if i >= args.max_eval_steps:
             break
-        out = eval_step(val_assembler(indices), rng=i)
+        out = eval_step(val_assembler(indices, rows=rows), rng=i)
         for k in ("loss", "acc", "action_loss"):
             if k in out:
                 sums[k] = sums.get(k, 0.0) + float(out[k])

@@ -1,15 +1,22 @@
 """Training CLI: `python -m hma_tpu_torch.train_multi ...`
 
 The flags of `hma_tpu.train_multi`, plus `--device` (default: the CUDA
-card; raises if there is none). Execution is the single-device trainer in
+card; raises if there is none). Execution is the trainer in
 `hma_tpu_torch/train/trainer.py`, for both families (`--model_type
 discrete` or `continuous`); `--tokenizer_checkpoint` / `--lpips_weights`
 add the discrete rollout eval's pixel PSNR and LPIPS; `--use_native_loader`
 feeds the batches from the C++ loader; `--mu_transfer` trains with muP,
 `--adam_moment_dtype bfloat16` keeps Adam's moments in bf16 (stochastic
 rounding), `--action_network` takes any injection (`concat+cross_attention`
-among them). Flags for what it does not port yet (a mesh, `--sliced_grads
-on`, wandb) raise.
+among them), `--sliced_grads` forms gradients for the active domain's row
+of each stacked table only ("auto": with the domain-sliced AdamW on one
+process). Data-parallel on several cards with torchrun, one process a card:
+
+    torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... [--dp 8]
+
+(`--per_device_train_batch_size` is each card's share; add `--device cpu`
+for gloo processes on the CPU). Flags for what it does not port yet
+(`--fsdp/--tp/--sp` above 1, wandb) raise.
 """
 
 from __future__ import annotations
@@ -71,7 +78,9 @@ def parse_args(argv=None) -> TrainArgs:
     p.add_argument("--adam_moment_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--sliced_grads", type=str, default="auto",
-                   choices=["auto", "on", "off"])
+                   choices=["auto", "on", "off"],
+                   help="grads for the active domain's row of each stacked table "
+                        "only; auto: on with the domain-sliced AdamW on one process")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; raises without a card)")
     return TrainArgs(**vars(p.parse_args(argv)))

@@ -14,16 +14,22 @@ from typing import Any, Optional
 
 
 class MetricLogger:
-    def __init__(self, output_dir: str, config: Optional[dict] = None):
+    """`enabled=False` (a process other than the primary) writes nothing."""
+
+    def __init__(self, output_dir: str, config: Optional[dict] = None,
+                 enabled: bool = True):
         self.output_dir = Path(output_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
-        self._fh = open(self.output_dir / "metrics.jsonl", "a")
+        self._fh = None
+        if enabled:
+            self.output_dir.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.output_dir / "metrics.jsonl", "a")
         if config:
             self._write({"_config": _jsonable(config), "_ts": time.time()})
 
     def _write(self, rec: dict) -> None:
-        self._fh.write(json.dumps(rec) + "\n")
-        self._fh.flush()
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
 
     def log(self, metrics: dict, step: Optional[int] = None) -> None:
         rec = {k: _jsonable(v) for k, v in metrics.items()}
@@ -33,7 +39,8 @@ class MetricLogger:
         self._write(rec)
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
     def __enter__(self):
         return self

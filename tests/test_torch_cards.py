@@ -142,7 +142,7 @@ def test_d61_card_training_step_matches_jax(d61_pair):
     sched = jax_step.custom_cosine_schedule(LR, 1, 10)
     tx = jax_step.make_optimizer(sched, WD, eps=EPS, params_template=params)
     step = jax.jit(jax_step.make_train_step(jm, tx))
-    state = jax_step.TrainState(params, tx.init(params), jnp.asarray(0))
+    state = jax_step.TrainState(params, jax.jit(tx.init)(params), jnp.asarray(0))
     state, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                           jax.random.PRNGKey(0))
 

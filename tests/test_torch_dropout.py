@@ -26,7 +26,7 @@ from hma_tpu_torch.convert import params_from_jax
 from hma_tpu_torch.models.st_mar import STMAR, patchify
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
 from hma_tpu_torch.train import step as port_step
-from torch_port_helpers import JaxTrainingDraws, build_mar_pair, build_pair, to_torch
+from torch_port_helpers import JaxTrainingDraws, build_pair, port_model, tiny_mar_card, to_torch
 
 DROP = 0.1
 
@@ -101,7 +101,11 @@ def _remat_grads(build, run, seed):
 
 @pytest.fixture(scope="module")
 def mar_env():
-    _, _, tm, lat, actions = build_mar_pair(seed=12, mlp_drop=DROP)
+    # the port against itself: no JAX side, so no JAX init is compiled
+    tm = port_model(STMAR, tiny_mar_card(mlp_drop=DROP), seed=12)
+    cfg, rng = tm.config, np.random.default_rng(12)
+    lat = rng.normal(size=(2, cfg.T, cfg.h, cfg.h, cfg.vae_embed_dim)).astype(np.float32)
+    actions = rng.normal(size=(2, cfg.T, cfg.max_d_action)).astype(np.float32)
     mask = (np.random.default_rng(3).random(lat.shape[:4]) < 0.5).astype(np.int32)
     mask[:, 0] = 0
     return dict(tm=tm, cfg=tm.config, lat=lat, actions=actions, mask=mask)

@@ -47,7 +47,7 @@ from hma_tpu_torch.rollout.maskgit import autoregressive_logits, teacher_forced_
 from hma_tpu_torch.tokenizer.convert import load_magvit2
 from hma_tpu_torch.tokenizer.magvit2 import VQConfig, VQModel
 from hma_tpu_torch.utils.checkpoint import save_checkpoint
-from torch_port_helpers import build_mar_pair, build_pair, tiny_card, tiny_mar_card
+from torch_port_helpers import build_pair, port_model, tiny_card, tiny_mar_card
 
 B = 2
 
@@ -82,7 +82,7 @@ def feature_env(tmp_path_factory):
     card = tiny_mar_card(jointly_predict_actions=True)
     data = _dataset(root / "data", np.random.default_rng(11), 30, (4, 4, 4), np.float16,
                     card["d_actions"][0], {"latent_channels": 4})
-    _, _, tm, _, _ = build_mar_pair(jointly_predict_actions=True)
+    tm = port_model(STMAR, card)  # the CLI is held to the port's functions
     save_checkpoint(str(root), "ckpt", tm.state_dict(), DiffusionGenieConfig(**card))
     return root, data
 
@@ -327,11 +327,17 @@ def test_unsupported_flags_raise(tmp_path, cli, extra, error, match):
 
 
 def test_more_than_one_process_raises(monkeypatch):
+    """More than one process is ported (tests/test_torch_data_parallel.py
+    runs two); what cannot start one raises instead of running alone: a
+    world of two with no process id, and TPU metadata discovery."""
     assert init_distributed() is False
     monkeypatch.setenv("HMA_TPU_NUM_PROCESSES", "2")
     monkeypatch.setenv("HMA_TPU_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        init_distributed()
+    with pytest.raises(ValueError, match="process id"):
+        init_distributed(device="cpu")
+    monkeypatch.setenv("HMA_TPU_COORDINATOR", "auto")
+    with pytest.raises(NotImplementedError, match="metadata"):
+        init_distributed(device="cpu")
 
 
 def test_clis_without_device_raise_on_cpu_host(env, feature_env, monkeypatch):

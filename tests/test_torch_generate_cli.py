@@ -32,7 +32,7 @@ from hma_tpu_torch.generate import main as generate_main
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.rollout.mar import generate_latents, teacher_forced_latents
 from hma_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from torch_port_helpers import build_mar_pair, build_pair, tiny_card, tiny_mar_card
+from torch_port_helpers import build_pair, port_model, tiny_card, tiny_mar_card
 
 PROMPT, B = 2, 2
 
@@ -104,8 +104,8 @@ def test_generate_cli_refuses_feature_family(env):
 
 @pytest.fixture(scope="module")
 def feature_env(tmp_path_factory):
-    """A latent dataset (float16 (N, C, h, w)) and a converted STMAR
-    checkpoint of the tiny continuous card."""
+    """A latent dataset (float16 (N, C, h, w)) and an STMAR checkpoint of
+    the tiny continuous card (the port's weights, every tensor perturbed)."""
     root = tmp_path_factory.mktemp("port_gen_feature")
     rng = np.random.default_rng(11)
     card = tiny_mar_card()
@@ -115,7 +115,7 @@ def feature_env(tmp_path_factory):
     actions = rng.normal(size=(n, card["d_actions"][0])).astype(np.float32)
     data = root / "data"
     write_token_dataset(data, video, segs, actions, {"name": "a", "latent_channels": 4})
-    _, _, tm, _, _ = build_mar_pair()
+    tm = port_model(STMAR, card)  # the CLI is held to the port's rollouts
     save_checkpoint(str(root), "ckpt", tm.state_dict(), DiffusionGenieConfig(**card))
     return root, data, video, segs, actions
 

@@ -1,7 +1,8 @@
 """The port stands alone: no file of hma_tpu_torch/ or chip_smoke.py imports
 JAX, optax, flax or hma_tpu (the collators, sampler, logger, extern readers
 and the native loader's C++ source are the port's own copies), importing the port leaves JAX unloaded, an entry point with no
-device on a host without a card raises instead of using the CPU, and the
+device on a host without a card raises instead of using the CPU (the
+process group too), and the
 build compiles every CUDA source under csrc/, K5''s resident entries
 among them."""
 
@@ -15,6 +16,7 @@ import torch
 
 import hma_tpu_torch
 from hma_tpu_torch.generate import main as generate_main
+from hma_tpu_torch.parallel.distributed import init_distributed
 from hma_tpu_torch.train_multi import main as train_main
 from hma_tpu_torch.train_tokenizer import main as train_tokenizer_main
 from hma_tpu_torch.visualize import main as visualize_main
@@ -58,7 +60,9 @@ def test_port_files_import_no_jax_or_hma_tpu():
             "hma_tpu_torch/data/extern/egoexo4d.py",
             "hma_tpu_torch/data/extern/epic_kitchen.py",
             "hma_tpu_torch/data/extern/robomimic.py", "hma_tpu_torch/train/lowp.py",
-            "hma_tpu_torch/models/action_stems.py"} <= names
+            "hma_tpu_torch/models/action_stems.py", "hma_tpu_torch/parallel/mesh.py",
+            "hma_tpu_torch/parallel/distributed.py",
+            "hma_tpu_torch/parallel/sharded_eval.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -76,7 +80,8 @@ def test_importing_the_port_loads_no_jax():
             "hma_tpu_torch.data.encode_extern, hma_tpu_torch.data.merge_shards, "
             "hma_tpu_torch.data.native_loader, hma_tpu_torch.data.extern.ego4d, "
             "hma_tpu_torch.data.extern.egoexo4d, hma_tpu_torch.data.extern.epic_kitchen, "
-            "hma_tpu_torch.data.extern.robomimic; "
+            "hma_tpu_torch.data.extern.robomimic, hma_tpu_torch.parallel.mesh, "
+            "hma_tpu_torch.parallel.sharded_eval; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -88,6 +93,19 @@ def test_entry_point_without_device_raises_on_cpu_host(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hma_tpu_torch.resolve_device()
+    # the process group starts on the card (NCCL) unless asked for the CPU,
+    # and never falls back to one process: TPU metadata discovery raises
+    monkeypatch.setenv("HMA_TPU_COORDINATOR", "auto")
+    with pytest.raises(NotImplementedError, match="metadata"):
+        init_distributed()
+    monkeypatch.setenv("HMA_TPU_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("HMA_TPU_NUM_PROCESSES", "2")
+    monkeypatch.setenv("HMA_TPU_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed()
+    monkeypatch.delenv("HMA_TPU_COORDINATOR")
+    monkeypatch.delenv("HMA_TPU_NUM_PROCESSES")
+    monkeypatch.delenv("HMA_TPU_PROCESS_ID")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate_main(["--checkpoint_dir", str(tmp_path), "--val_data_dir",
                        str(tmp_path), "--output_dir", str(tmp_path / "out")])

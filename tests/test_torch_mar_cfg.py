@@ -8,12 +8,13 @@ import numpy as np
 import pytest
 
 from hma_tpu.rollout import mar as jax_mar
+from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.rollout.mar import (
     generate_frame_mar,
     generate_latents,
     teacher_forced_latents,
 )
-from torch_port_helpers import build_mar_pair, jax_mar_draws, to_torch
+from torch_port_helpers import build_mar_pair, jax_mar_draws, port_model, tiny_mar_card, to_torch
 
 TOL = dict(atol=1e-4, rtol=1e-4)  # as tests/test_torch_mar_rollout.py
 DOM = jnp.asarray(0, jnp.int32)
@@ -70,6 +71,6 @@ def test_cfg_refuses_what_jax_refuses(joint_pair):
     k, v = tm.init_cache(2)
     with pytest.raises(ValueError, match="caller-doubled"):
         generate_frame_mar(tm, 1, k, v, to_torch(actions), 0, cfg=2.0, batch_size=2)
-    untrained = build_mar_pair(seed=5)[2]  # jointly_predict_actions=False
+    untrained = port_model(STMAR, tiny_mar_card(), seed=5)  # jointly_predict_actions=False
     with pytest.raises(ValueError, match="trained unconditional branch"):
         generate_latents(untrained, to_torch(lat), 2, to_torch(actions), 0, cfg=2.0)

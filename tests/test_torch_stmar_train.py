@@ -266,7 +266,7 @@ def _steps_env(num_domains: int, domains):
         return state, metrics, rec.tree()
 
     step_rec = jax.jit(step_rec)
-    state = jax_step.TrainState(params, tx.init(params), jnp.asarray(0))
+    state = jax_step.TrainState(params, jax.jit(tx.init)(params), jnp.asarray(0))
     batches, recs = [_batch(card, 2, 10 + i, d) for i, d in enumerate(domains)], []
     for i, b in enumerate(batches):
         state, _, tree = step_rec(state, {k: jnp.asarray(v) for k, v in b.items()},

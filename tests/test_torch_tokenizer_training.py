@@ -298,7 +298,8 @@ def _gan_run(lpips, gen_loss_weight, lr=LR, **cfg):
     vq, disc = JaxVQModel(cfg_j, dtype=jnp.float32), JaxDisc(ndf=cfg_j.disc_ndf,
                                                            n_layers=cfg_j.disc_num_layers)
     tx_g, tx_d = (optax.adam(jax_warmup(lr, WARMUP), b1=0.5, b2=0.9) for _ in range(2))
-    js = JaxVQTrainState(gen, tx_g.init(gen), dvars, tx_d.init(dvars["params"]), gen,
+    js = JaxVQTrainState(gen, jax.jit(tx_g.init)(gen), dvars,
+                         jax.jit(tx_d.init)(dvars["params"]), gen,
                          jnp.zeros(()), jl.LeCamState.init(), jnp.zeros((), jnp.int32))
 
     lp_sd = _lpips_state() if lpips else None

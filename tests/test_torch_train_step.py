@@ -117,7 +117,7 @@ def dense_env():
     sched = jax_step.custom_cosine_schedule(LR, 1, 10)
     tx = jax_step.make_optimizer(sched, WD, eps=EPS, params_template=params)
     step = jax.jit(jax_step.make_train_step(jm, tx))
-    state = jax_step.TrainState(params, tx.init(params), jnp.asarray(0))
+    state = jax_step.TrainState(params, jax.jit(tx.init)(params), jnp.asarray(0))
     for i, b in enumerate(batches):
         state, _ = step(state, _jax_batch(b), jax.random.PRNGKey(i))
     return dict(card=card, cfg=cfg, jm=jm, params=params, tm=tm, batches=batches,
@@ -140,7 +140,7 @@ def sliced_env():
         sched, WD, eps=EPS, params_template=params, stacked_mask=mask,
         num_domains=3)
     step = jax.jit(jax_step.make_train_step(jm, tx))
-    state = jax_step.TrainState(params, tx.init(params), jnp.asarray(0))
+    state = jax_step.TrainState(params, jax.jit(tx.init)(params), jnp.asarray(0))
     batches = [_batch(card, 4, seed=20 + i, domain_id=d)
                for i, d in enumerate((1, 2, 1))]
     for i, b in enumerate(batches):

@@ -1,0 +1,165 @@
+"""Rank process of tests/test_torch_data_parallel.py (not a test module).
+
+Launched twice with torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR, MASTER_PORT): each process joins the gloo group through
+`hma_tpu_torch.parallel.distributed.init_distributed(device="cpu")`, then
+
+  1. runs `train_multi` for 3 steps from the test's initial weights, then
+     again resumed from its step-2 checkpoint, recording every step's
+     metrics and which ranks wrote checkpoints;
+  2. runs `evaluate` and `evaluate_feature` over the two ranks;
+  3. runs the port's train step on its rows of the global batches of
+     `<case>_case.pt` (`train_case`): both families with hma_tpu's draws
+     handed in (the discrete case with sliced gradients), once the test has
+     written them, and both families drawing their own dropout, action
+     drops and diffusion noise, and saves its parameters and moments;
+
+and saves what the test compares. It imports no JAX.
+"""
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig  # noqa: E402
+from hma_tpu_torch.evaluate import main as evaluate_main  # noqa: E402
+from hma_tpu_torch.evaluate_feature import main as evaluate_feature_main  # noqa: E402
+from hma_tpu_torch.models.st_mar import STMAR  # noqa: E402
+from hma_tpu_torch.models.st_mask_git import STMaskGIT  # noqa: E402
+from hma_tpu_torch.parallel import distributed as dist  # noqa: E402
+from hma_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from hma_tpu_torch.train import step as port_step  # noqa: E402
+from hma_tpu_torch.train import trainer  # noqa: E402
+from hma_tpu_torch.train_multi import main as train_main  # noqa: E402
+
+LR, WD, EPS = 3e-3, 0.05, 1e-3
+
+
+def _rows_of(draw: torch.Tensor, rows: np.ndarray, B: int, mul: int) -> torch.Tensor:
+    """This rank's rows of a diffusion draw over the (mul, B, T*S') patch
+    rows of the global batch."""
+    rest = draw.shape[1:]
+    return draw.reshape(mul, B, -1, *rest)[:, rows].reshape(-1, *rest)
+
+
+def train_case(spec: dict, group=None) -> dict:
+    """The port's train step over `spec`'s global batches on this rank's
+    rows (every row without a group): the domain-sliced AdamW, sliced
+    gradients on the discrete card, `spec["draws"]` handed in where there
+    are some, grad accumulation over microbatches of `spec["microbatch"]`
+    global rows where it is set (a rank takes its rows of each). Returns
+    the parameters, moments, counts and every step's metrics."""
+    continuous = spec["continuous"]
+    cls, cfg_cls = (STMAR, DiffusionGenieConfig) if continuous else (STMaskGIT, GenieConfig)
+    cfg = cfg_cls(**spec["card"])
+    model = cls(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(spec["state"])
+    more = cfg_cls(**spec["card_more"])
+    stacked = port_step.domain_stacked_mask(model, cls(more, dtype=torch.float32,
+                                                       device="meta"))
+    tx = port_step.make_domain_sliced_optimizer(
+        model, port_step.custom_cosine_schedule(LR, 1, 10), WD, eps=EPS,
+        stacked_mask=stacked, num_domains=cfg.num_domains)
+    world = 1 if group is None else dist.process_count()
+    mb = spec.get("microbatch", 0)
+    step = port_step.make_train_step(
+        model, tx, microbatch=mb // world, continuous=continuous,
+        action_loss_weight=cfg.action_loss_weight,
+        stacked_mask=None if continuous else stacked, group=group)
+    metrics = []
+    for i, batch in enumerate(spec["batches"]):
+        B = batch["input_ids"].shape[0]
+        chunks = np.arange(B).reshape(-1, mb or B)  # a rank's rows of each microbatch
+        rows = (np.arange(B) if group is None
+                else np.concatenate([dist.local_slice(c) for c in chunks]))
+        local = {k: (v[rows] if torch.is_tensor(v) else v) for k, v in batch.items()}
+        draws = None
+        if spec.get("draws"):
+            draws = {k: _rows_of(v, rows, B, cfg.diffusion_batch_mul)
+                     for k, v in spec["draws"][i].items()}
+        metrics.append({k: float(v) for k, v in step(local, rng=i, draws=draws).items()})
+    return {"params": {n: p.detach() for n, p in model.named_parameters()},
+            "m": tx.m, "v": tx.v, "count": tx.count, "domain_count": tx.domain_count,
+            "metrics": metrics}
+
+
+def run_case(root: Path, case: str, group) -> None:
+    path = root / f"{case}_case.pt"
+    deadline = time.monotonic() + 600
+    while not path.exists():  # the test writes it while this rank trains
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.2)
+    torch.save(train_case(torch.load(path, weights_only=False), group),
+               root / f"{case}_rank{dist.process_index()}.pt")
+
+
+def run_train_multi(root: Path) -> None:
+    """The straight 3-step run and the run resumed from its step 2, both
+    from the test's initial weights; every step's metrics on this rank and
+    the ranks that wrote checkpoints."""
+    init = torch.load(root / "init.pt", weights_only=True)
+
+    class Loaded(STMaskGIT):
+        """The trainer's model with the test's initial weights (the meta
+        probes it builds stay meta)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if kw.get("device") != "meta":
+                self.load_state_dict(init)
+
+    trainer.STMaskGIT = Loaded
+    seen, writers = [], []
+    make_step, save = trainer.make_train_step, trainer.save_checkpoint
+
+    def recording_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*sa, **skw):
+            out = step(*sa, **skw)
+            seen.append({k: float(v) for k, v in out.items()})
+            return out
+        return run
+
+    def recording_save(*a, **kw):
+        writers.append(dist.process_index())
+        return save(*a, **kw)
+
+    trainer.make_train_step, trainer.save_checkpoint = recording_step, recording_save
+    argv = json.loads((root / "train_argv.json").read_text())
+    train_main([*argv, "--output_dir", str(root / "port_a")])
+    straight = list(seen)
+    seen.clear()
+    train_main([*argv, "--output_dir", str(root / "port_b"),
+                "--resume_from_checkpoint", str(root / "port_a" / "step_2")])
+    (root / f"train_rank{dist.process_index()}.json").write_text(json.dumps(
+        {"straight": straight, "resumed": seen, "writers": writers}))
+
+
+def main():
+    root = Path(sys.argv[1])
+    assert dist.init_distributed(device="cpu")
+    assert dist.process_count() == 2
+    run_train_multi(root)
+    out = {"evaluate": evaluate_main(json.loads((root / "eval_argv.json").read_text())),
+           "evaluate_feature": evaluate_feature_main(
+               json.loads((root / "feature_argv.json").read_text()))}
+    group = make_mesh(dp=2).get_group("dp")
+    for case in ("discrete_drawn", "continuous_drawn", "discrete", "continuous"):
+        run_case(root, case, group)
+    out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hma_tpu"))
+    (root / f"eval_rank{dist.process_index()}.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("DP_OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -157,6 +157,21 @@ def perturbed(params, rng, scale: float = 0.02):
         params)
 
 
+def port_model(cls, card: dict, seed: int = 0, scale: float = 0.02):
+    """The port's model alone (`STMaskGIT` or `STMAR`) of `card` in fp32 on
+    the CPU, drawn from `seed`, every parameter plus noise as `perturbed`
+    adds it (the zero-init tensors take part): for tests that compare the
+    port with itself and need no JAX side, so no JAX init is compiled."""
+    cfg_cls = DiffusionGenieConfig if cls is STMAR else GenieConfig
+    model = cls(cfg_cls(**card), dtype=torch.float32, device="cpu",
+                generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=g))
+    return model
+
+
 def build_mar_pair(B: int = 2, seed: int = 0, **card_kw):
     """(jax_model, jax_params, torch_model, latents, actions) in fp32 for
     the tiny continuous card; latents (B, T, h, w, C), actions (B, T,
