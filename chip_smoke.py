@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-three)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-four)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -326,7 +326,24 @@ Phases, each failing the run on any error:
      the optimizer receives within DP_TOL, the ranks' parameters equal bit
      for bit; beside them `python -m hma_tpu_torch.train_multi` under
      torchrun's variables, a 1-rank NCCL group, on a 2-domain synthetic set
-     (sliced gradients on, the row grads reduced over the group), 4 steps.
+     (sliced gradients on, the row grads reduced over the group), 4 steps;
+ 24. fsdp: (a) in a 1-rank NCCL group in this process, FSDP2 over its mesh
+     (`parallel.mesh.shard_model`) against the unwrapped model on the same
+     weights and batch: the 2-layer fp32 cards of both families (40
+     domains, STMAR's dropout live), 2 steps, parameters and moments within
+     FSDP_TOL, the d256 one's (2 domains) FSDP2 checkpoint gathered and read
+     into one unwrapped model bit for bit; the d512 STMAR card at full width
+     and depth, B 8, with fp32 and then bf16 moments, and the d256 card at
+     phase 6's shapes, full grads, FSDP_STEPS timed steps of each (the
+     unwrapped run first, then the FSDP2 one): losses (the first bit for
+     bit), median step, peak memory, 64/32/64/32 of K1'-K4' a d256 step;
+     one STMAR `sample_tokens` through K6' on the gathered head against the
+     unwrapped model, bit for bit, twice; (b) fsdp 2 over two gloo ranks
+     sharing the card (this script started twice with --fsdp_worker),
+     phase 23 (b)'s case, one full-grad step against one process: loss and
+     each rank's shard of every grad within DP_TOL, each rank half the
+     state's bytes; (c) beside (b), `train_multi --fsdp 1` in a 1-rank NCCL
+     group resumed from (a)'s checkpoint for 4 steps.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -5524,10 +5541,11 @@ def data_parallel_phase(tmp):
             "a rank missed a kernel")
 
 
-def start_nccl_train_multi(root):
+def start_nccl_train_multi(root, *extra):
     """(b) `python -m hma_tpu_torch.train_multi` under torchrun's variables,
     a 1-rank NCCL group, on a 2-domain synthetic set of the 2-layer d256
-    card, started in the background: (process, root, start time)."""
+    card, started in the background, with the flags `extra` last: (process,
+    root, start time)."""
     import os
 
     cfg = flagship_config(2)
@@ -5545,7 +5563,7 @@ def start_nccl_train_multi(root):
          "--per_device_train_batch_size", "4", "--max_train_steps", "4",
          "--overfit_first_batch", "--checkpointing_steps", "2", "--eval_every_n_steps", "4",
          "--max_eval_steps", "1", "--log_every", "1", "--num_warmup_steps", "1",
-         "--learning_rate", "3e-4"],
+         "--learning_rate", "3e-4", *extra],
         cwd=str(ROOT), env=env, stdout=(root / "log.txt").open("w"),
         stderr=subprocess.STDOUT)
     return proc, root, time.perf_counter()
@@ -5593,15 +5611,371 @@ def sliced_dp_phase(records):
         data_parallel_phase(tmp)
 
 
+# ------------------------------------------------------------------ phase 24
+
+FSDP_TOL = 1e-6  # (a) 2-layer fp32 cards: FSDP2 against unwrapped, max|d| / max|x| a tensor
+FSDP_STEPS = 4  # (a) timed steps of each kind after one warm-up, full-width cards
+
+
+def one_rank_mesh():
+    """A 1-rank NCCL process group in this process, its address and rank
+    given here, and its (dp 1, fsdp 1) mesh."""
+    import torch
+
+    from hma_tpu_torch.parallel.mesh import make_mesh
+
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+        device_id=torch.device("cuda", 0))
+    return make_mesh(fsdp=1)
+
+
+def fsdp_steps(build, batch, continuous, mesh, n_steps, want=None, **tx_kw):
+    """`build()`'s model, sharded by FSDP2 over `mesh` (None: unwrapped),
+    with the domain-sliced AdamW and full grads: one warm-up step, then
+    `n_steps` timed, the launch counts set to 0 just before each and read
+    just after. ({"losses" (warm-up first), "secs", "peaks", "counts"},
+    model, optimizer)."""
+    import gc
+
+    import torch
+
+    from hma_tpu_torch.parallel.mesh import data_group, shard_model
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    gc.collect()  # the model before, FSDP2's cycles included, off the card
+    torch.cuda.empty_cache()
+    model, cfg = build()
+    mask = stacked_param_mask(model, cfg)
+    if mesh is not None:
+        shard_model(model, mesh)
+    tx = make_domain_sliced_optimizer(model, 1e-4, stacked_mask=mask,
+                                      num_domains=cfg.num_domains, **tx_kw)
+    step = make_train_step(model.train(), tx, continuous=continuous,
+                           action_loss_weight=cfg.action_loss_weight,
+                           group=None if mesh is None else data_group(mesh))
+    out = {"losses": [], "secs": [], "peaks": [], "counts": []}
+    for i in range(n_steps + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(batch, rng=i)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        require(math.isfinite(m["loss"].item()) and m["skipped"].item() == 0.0,
+                f"step not finite or skipped: {m}")
+        require(want is None or counts == want, f"launches of a step {counts}, want {want}")
+        out["losses"].append(m["loss"].item())
+        if i:
+            out["secs"].append(secs)
+            out["peaks"].append(torch.cuda.max_memory_allocated())
+            out["counts"].append(counts)
+    return out, model, tx
+
+
+def fsdp_full_width(label, build, layers, batch, continuous, mesh, shapes, records,
+                    **tx_kw):
+    """(a) one full-width card: the unwrapped step, then the FSDP2 step from
+    the same weights (`build` draws them from a seed) on the same batch and
+    draws; the first step's loss must agree bit for bit. Launches land in
+    phase 3's records. Returns the FSDP2 model."""
+    import torch
+
+    want = train_launches(layers, "transpose")
+    runs = {}
+    for kind in ("unwrapped", "FSDP2"):
+        runs[kind], model, tx = fsdp_steps(build, batch, continuous,
+                                           mesh if kind == "FSDP2" else None, FSDP_STEPS,
+                                           want, **tx_kw)
+        for counts in runs[kind]["counts"]:
+            set_launches(records, {(k, shapes[k]): counts[k] for k in TRAINING_KERNELS},
+                         add=True)
+        if kind == "unwrapped":
+            del model, tx
+    med = {k: sorted(r["secs"])[len(r["secs"]) // 2] for k, r in runs.items()}
+    peak = {k: max(r["peaks"]) for k, r in runs.items()}
+    for kind, r in runs.items():
+        print(f"  {label}, {kind}: losses {', '.join(f'{x:.6f}' for x in r['losses'])}; "
+              f"steps {', '.join(f'{t:.4f}' for t in r['secs'])} s, median {med[kind]:.4f} "
+              f"s; peak memory {', '.join(f'{p / 1e9:.2f}' for p in r['peaks'])} GB",
+              flush=True)
+    print(f"  {label}: FSDP2 / unwrapped median step {med['FSDP2'] / med['unwrapped'] - 1:+.2%}"
+          f", peak {peak['FSDP2'] / 1e9:.2f} / {peak['unwrapped'] / 1e9:.2f} GB "
+          f"({(peak['FSDP2'] - peak['unwrapped']) / 1e9:+.2f} GB); launches a step "
+          f"{runs['FSDP2']['counts'][0]}", flush=True)
+    require(runs["FSDP2"]["losses"][0] == runs["unwrapped"]["losses"][0],
+            f"{label}: the first step's loss differs under FSDP2")
+    del tx
+    return model
+
+
+def fsdp_exactness(label, model, batch, continuous, mesh, ckpt_root=None):
+    """(a) a 2-layer fp32 card: 2 steps unwrapped and 2 under FSDP2 from the
+    same weights; parameters and moments (gathered whole) within FSDP_TOL.
+    With `ckpt_root`, the FSDP2 run's training checkpoint is written there
+    as the trainer writes it (gathered, then saved) and read back into one
+    unwrapped process, bit for bit."""
+    import copy
+
+    import torch
+
+    from hma_tpu_torch.parallel.mesh import full
+    from hma_tpu_torch.utils.checkpoint import gather_state, load_checkpoint, save_checkpoint
+
+    out = {}
+    for kind in ("unwrapped", "FSDP2"):
+        run, m, tx = fsdp_steps(lambda: (copy.deepcopy(model), model.config), batch,
+                                continuous, mesh if kind == "FSDP2" else None, 1)
+        out[kind] = {"params": {n: full(p.detach()) for n, p in m.named_parameters()},
+                     "m": {n: full(x) for n, x in tx.m.items()},
+                     "v": {n: full(x) for n, x in tx.v.items()}, "losses": run["losses"]}
+    worst, where = 0.0, ""
+    for what in ("params", "m", "v"):
+        for n, want in out["unwrapped"][what].items():
+            scale = want.abs().max().item()
+            err = (out["FSDP2"][what][n] - want).abs().max().item()
+            ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+            if ratio >= worst:
+                worst, where = ratio, f"{what} {n}"
+    print(f"  {label}: FSDP2 against unwrapped after 2 steps, losses "
+          f"{out['FSDP2']['losses']} / {out['unwrapped']['losses']}, worst max|d|/max|x| "
+          f"{worst:.3e} at {where} (tol {FSDP_TOL})", flush=True)
+    require(worst <= FSDP_TOL, f"{label}: FSDP2 and unwrapped differ: {worst:.3e}")
+    if ckpt_root is None:
+        return
+    state, opt = gather_state(m.state_dict()), gather_state(tx.state_dict())
+    path = save_checkpoint(str(ckpt_root), "step_2", state, m.config, opt_state=opt, step=2)
+    one, _ = load_checkpoint(path, "cuda", dtype=torch.float32)
+    same = all(torch.equal(v, state[k]) for k, v in one.state_dict().items())
+    print(f"  {label}: the FSDP2 run's checkpoint (gathered) read into one unwrapped "
+          f"model equals it bit for bit: {same}", flush=True)
+    require(same and set(one.state_dict()) == set(state),
+            f"{label}: the FSDP2 checkpoint does not load into one process")
+
+
+def fsdp_sampling(label, model, cfg):
+    """(a) one STMAR sampling call of the FSDP2-sharded model (K6' on the
+    head gathered whole) against an unwrapped copy of its weights: the same
+    tokens bit for bit, one K6' launch."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.utils.checkpoint import gather_state
+
+    plain = STMAR(cfg, dtype=torch.bfloat16, device="cuda")
+    plain.load_state_dict(gather_state(model.state_dict()))
+    z = torch.randn(48, cfg.d_model, generator=torch.Generator("cuda").manual_seed(9),
+                    device="cuda")
+    got = []
+    for m in (model, plain, model):  # the second sharded call reads no stale buffers
+        reset_counts()
+        with torch.no_grad():
+            got.append(m.eval().sample_tokens(z, torch.Generator("cuda").manual_seed(10)))
+        counts = read_counts()
+        require(counts["K6'"] == 1, f"{label}: K6' launches {counts}")
+    same = torch.equal(got[0], got[1]) and torch.equal(got[2], got[1])
+    print(f"  {label}: sample_tokens (N 48, K 100) through K6' on the gathered head equals "
+          f"the unwrapped model's bit for bit: {same}", flush=True)
+    require(same, f"{label}: FSDP2 sampling differs")
+    del plain
+
+
+def fsdp_dp_step(model, batch, mask, group=None):
+    """One full-grad step of the domain-sliced AdamW (`mask` found before
+    any sharding) on `batch` (with `group`, on this rank's rows), capturing
+    this rank's shard of each grad the optimizer gets and its index in the
+    whole: (loss, {name: (grad shard, index)}, optimizer). Nothing is
+    gathered: DTensor's gather (functional collectives) crashes over gloo
+    on CUDA tensors, where c10d's collectives, FSDP2's, work."""
+    import torch
+
+    from hma_tpu_torch.parallel.mesh import local, shard_slices
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+
+    tx = make_domain_sliced_optimizer(model, DP_LR, stacked_mask=mask,
+                                      num_domains=model.config.num_domains)
+    seen = {}
+    update = tx.step
+
+    def spy(params, grads, d, ok, noise=None):
+        seen.update({n: (local(g).detach().cpu().clone(),
+                         tuple((s.start, s.stop) for s in shard_slices(g)))
+                     for n, g in grads.items()})
+        return update(params, grads, d, ok, noise)
+
+    tx.step = spy
+    if group is not None:
+        B = batch["input_ids"].shape[0]
+        rank, world = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+        rows = slice(rank * B // world, (rank + 1) * B // world)
+        batch = {k: (v[rows] if torch.is_tensor(v) else v) for k, v in batch.items()}
+    metrics = make_train_step(model, tx, group=group)(batch)
+    return metrics["loss"].item(), seen, tx
+
+
+def fsdp_worker(spec: str) -> int:
+    """A rank of (b): a gloo group over the card's CUDA tensors, a (dp 1,
+    fsdp 2) CUDA mesh, phase 23 (b)'s 2-layer d256 case sharded by FSDP2,
+    one step on its rows; saves the loss, its shards of the grads and the
+    bytes of its shards of the parameters and of the moments."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from hma_tpu_torch.parallel.mesh import AXES, local, shard_model
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    rank, world, port, tmp = json.loads(spec)
+    torch.cuda.set_device(0)  # both ranks share the one card
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    mesh = init_device_mesh("cuda", (1, world, 1, 1), mesh_dim_names=AXES)
+    model, batch = load_dp_case(tmp)
+    mask = stacked_param_mask(model, model.config)
+    shard_model(model, mesh)
+    loss, grads, tx = fsdp_dp_step(model, batch, mask, torch.distributed.group.WORLD)
+    nbytes = lambda ts: sum(local(t).numel() * local(t).element_size() for t in ts)
+    torch.save({"loss": loss, "grads": grads,
+                "bytes": (nbytes(model.parameters()),
+                          nbytes([*tx.m.values(), *tx.v.values()]))},
+               Path(tmp) / f"fsdp_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def fsdp_two_ranks(tmp):
+    """(b) fsdp 2 on the one card: two gloo ranks (this script started twice
+    with --fsdp_worker) against one unwrapped process on the whole batch."""
+    import torch
+
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    write_dp_case(tmp)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--fsdp_worker", json.dumps([r, 2, port, str(tmp)])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        model, batch = load_dp_case(tmp)
+        loss, grads, tx = fsdp_dp_step(model, batch, stacked_param_mask(model, model.config))
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"fsdp rank {r} failed (exit {p.returncode}):\n"
+                f"{out[-12000:]}")
+    ranks = [torch.load(Path(tmp) / f"fsdp_rank{r}.pt", weights_only=True) for r in range(2)]
+    loss_err = max(abs(r["loss"] - loss) / abs(loss) for r in ranks)
+    worst, where = 0.0, ""
+    for n, (want, _) in grads.items():
+        scale = want.abs().max().item()
+        for r in ranks:  # each rank's shard against its part of the whole
+            got, index = r["grads"][n]
+            part = want[tuple(slice(a, b) for a, b in index)]
+            err = (got - part).abs().max().item() if got.numel() else 0.0
+            ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+            if ratio >= worst:
+                worst, where = ratio, n
+    whole = (sum(p.numel() * 4 for p in model.parameters()),
+             sum(x.numel() * x.element_size() for x in [*tx.m.values(), *tx.v.values()]))
+    print(f"  fsdp 2: 2 gloo ranks on one card (CUDA tensors, FSDP2), 2-layer d256, B 8 "
+          f"(4 a rank, unequal masked counts), fp32, one full-grad step: loss "
+          f"{ranks[0]['loss']:.6f} against 1 process {loss:.6f} (rel err {loss_err:.3e}, "
+          f"tol {DP_TOL}); {len(grads)} grads, worst max|dg|/max|g| {worst:.3e} at {where} "
+          f"(tol {DP_TOL}); bytes of parameters / moments a rank "
+          f"{[r['bytes'] for r in ranks]}, 1 process {whole}", flush=True)
+    require(loss_err <= DP_TOL, "fsdp 2's loss differs from 1 process's")
+    require(worst <= DP_TOL, f"fsdp 2's grad {where} differs: {worst:.3e}")
+    require(all(2 * r["bytes"][k] <= whole[k] * 1.01 for r in ranks for k in (0, 1)),
+            "a rank holds more than its half of the state")
+
+
+def fsdp_phase(records):
+    """Phase 24: fsdp, (a) FSDP2 over a 1-rank NCCL mesh in this process,
+    (b) fsdp 2 over two gloo ranks sharing the card, (c) train_multi --fsdp
+    1 in a 1-rank NCCL group resumed from (a)'s FSDP2 checkpoint."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+
+    mesh = one_rank_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        small = flagship_config(2)  # (c)'s card
+        small.num_layers = 2
+        model = STMaskGIT(small, dtype=torch.float32, device="cuda", remat=True,
+                          generator=torch.Generator("cuda").manual_seed(3))
+        batch = train_batch(small, 2, "cuda")
+        batch["domain_id"] = 1
+        fsdp_exactness("2-layer d256, fp32, 2 domains, domain 1", model, batch, False, mesh,
+                       tmp / "ckpt")
+        small = mar_flagship_config(40)
+        small.num_layers = 2
+        model = STMAR(small, dtype=torch.float32, device="cuda", remat=True,
+                      generator=torch.Generator("cuda").manual_seed(3))
+        with torch.no_grad():  # wake the zero-init heads and tokens
+            g = torch.Generator("cuda").manual_seed(4)
+            for p in model.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
+        batch = mar_batch(small, 2, "cuda")
+        batch["domain_id"] = 5
+        fsdp_exactness("2-layer d512 STMAR, fp32, domain 5", model, batch, True, mesh)
+        del model, batch
+
+        mar_cfg, mar_shapes, mar_b = d512_sliced_case(8)
+
+        def build512():
+            return STMAR(mar_cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                         generator=torch.Generator("cuda").manual_seed(0)), mar_cfg
+
+        layers = mar_cfg.num_layers
+        fsdp_full_width("d512 STMAR step, fp32 moments", build512, layers, mar_b, True, mesh,
+                        mar_shapes, records)
+        model = fsdp_full_width("d512 STMAR step, bf16 moments", build512, layers, mar_b, True,
+                                mesh, mar_shapes, records, moment_dtype="bfloat16")
+        fsdp_sampling("d512 STMAR, FSDP2", model, mar_cfg)
+        del model, mar_b
+        cfg = flagship_config(40)
+        shapes = {"K1'": (8 * cfg.T, 320, 8, 32), "K2'": (8 * cfg.T, 320, 8, 32),
+                  "K3'": (8 * 320, cfg.T, 8, 32), "K4'": (8 * 320, cfg.T, 8, 32)}
+        fsdp_full_width("d256 step, fp32 moments",
+                        lambda: (STMaskGIT(cfg, dtype=torch.bfloat16, device="cuda", remat=True,
+                                           generator=torch.Generator("cuda").manual_seed(0)),
+                                 cfg), cfg.num_layers, train_batch(cfg, 8, "cuda"), False, mesh,
+                        shapes, records)
+        torch.cuda.empty_cache()
+
+        nccl = start_nccl_train_multi(tmp / "nccl", "--fsdp", "1", "--resume_from_checkpoint",
+                                      str(tmp / "ckpt" / "step_2"), "--max_train_steps", "6")
+        try:  # (c) beside (b)
+            fsdp_two_ranks(tmp)
+            check_nccl_train_multi(*nccl)
+        finally:
+            nccl[0].kill()
+        steps = [json.loads(l).get("_step") for l in
+                 (tmp / "nccl" / "run" / "metrics.jsonl").read_text().splitlines()
+                 if "train/loss" in l]
+        print(f"  train_multi --fsdp 1 resumed from the FSDP2 run's step-2 checkpoint: "
+              f"steps {steps}", flush=True)
+        require(steps == [3, 4, 5, 6], "train_multi did not resume from the FSDP2 checkpoint")
+    torch.distributed.destroy_process_group()
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 24)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 25)),
                    help="comma-separated phases to run (1 and 2 always run)")
     p.add_argument("--dp_worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--fsdp_worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--sliced_profile", action="store_true",
                    help="only the d512 STMAR fp32-moment step, full against sliced "
                         f"grads in {PROFILE_PAIRS} pairs, with a host profile")
@@ -5614,6 +5988,8 @@ def main(argv=None) -> int:
         return 2
     if args.dp_worker:  # a rank of phase 23 (b), started by the phase itself
         return dp_worker(args.dp_worker)
+    if args.fsdp_worker:  # a rank of phase 24 (b)
+        return fsdp_worker(args.fsdp_worker)
     if args.sliced_profile:
         return sliced_profile(args.profile_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5675,7 +6051,12 @@ def main(argv=None) -> int:
              (23, "sliced gradients (d512 STMAR and d256 steps with and without, "
                   "exactness); data parallelism: 2 gloo ranks on one card against 1 "
                   "process, train_multi in a 1-rank NCCL group",
-              lambda: sliced_dp_phase(records))]
+              lambda: sliced_dp_phase(records)),
+             (24, "fsdp: FSDP2 on a 1-rank NCCL mesh against the unwrapped step (d512 STMAR "
+                  "both moment dtypes, d256; 2-layer exactness; K6' on the gathered head; "
+                  "the gathered checkpoint); fsdp 2 on 2 gloo ranks against 1 process; "
+                  "train_multi --fsdp 1 resumed from the FSDP2 checkpoint",
+              lambda: fsdp_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()

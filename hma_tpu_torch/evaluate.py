@@ -27,9 +27,10 @@ evaluates its rows of every global batch (`--batch_size`, rounded down to
 a multiple of the world size) with its rows of the global batch's draws
 (`--seed`), so that N processes give what one gives; the token metrics are
 the global batch's, the pixel metrics and gen_time the mean over the
-processes, and process 0 writes. Not ported yet, and raising when asked
-for: `--use_wandb` (ROADMAP.md Queue A, item 11) and `--fsdp/--tp/--sp` > 1
-(items 10b and 10c).
+processes, and process 0 writes. With `--fsdp` above 1 the model's
+parameters are sharded over the processes by FSDP2, by the training rules.
+Not ported yet, and raising when asked for: `--use_wandb` (ROADMAP.md
+Queue A, item 11) and `--tp/--sp` > 1 (item 10c).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from hma_tpu_torch.generate import load_model
 from hma_tpu_torch.metrics.image import batch_psnr, batch_ssim
 from hma_tpu_torch.metrics.token import AvgMetric, teacher_forced_metrics
 from hma_tpu_torch.parallel import distributed as dist
-from hma_tpu_torch.parallel.sharded_eval import round_batch, setup_eval_mesh
+from hma_tpu_torch.parallel.sharded_eval import round_batch, setup_eval_mesh, shard_params
 from hma_tpu_torch.rollout.decode import codec, make_token_decoder
 from hma_tpu_torch.rollout.maskgit import autoregressive_logits, teacher_forced_logits
 from hma_tpu_torch.tokenizer.convert import load_magvit2
@@ -138,7 +139,8 @@ def main(argv=None):
     if args.raw_image_data and not args.tokenizer_ckpt:
         raise ValueError("--raw_image_data requires --tokenizer_ckpt")
     dist.init_distributed(device=args.device)
-    device = setup_eval_mesh(fsdp=args.fsdp, tp=args.tp, sp=args.sp, device=args.device)
+    device, mesh = setup_eval_mesh(fsdp=args.fsdp, tp=args.tp, sp=args.sp,
+                                   device=args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     decode = encode = None
     if args.tokenizer_ckpt:
@@ -147,6 +149,7 @@ def main(argv=None):
         if args.raw_image_data:
             encode = make_magvit_encoder(vq)
     model, config = load_model(args.checkpoint_dir, device, dtype)
+    model = shard_params(model, mesh)
     if args.raw_image_data:
         dataset = RawImageDataset(args.val_data_dir, window_size=config.T,
                                   use_actions=config.use_actions, domain=args.domain)

@@ -23,8 +23,10 @@ evaluates its rows of every global batch (`--batch_size`, rounded down to a
 multiple of the world size) with its rows of the global batch's draws, so
 that N processes give what one gives; the latent MSEs are the global
 batch's, the FID/FVD pass gathers every process's rows, gen_time is the
-mean over the processes, and process 0 writes. `--use_wandb` (ROADMAP.md
-Queue A, item 11) and `--fsdp/--tp/--sp` > 1 (items 10b, 10c) raise.
+mean over the processes, and process 0 writes. With `--fsdp` above 1 the
+model's parameters are sharded over the processes by FSDP2, by the
+training rules. `--use_wandb` (ROADMAP.md Queue A, item 11) and
+`--tp/--sp` > 1 (item 10c) raise.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from hma_tpu_torch.metrics.fid import calculate_fid, fid_from_features
 from hma_tpu_torch.metrics.fvd import calculate_fvd
 from hma_tpu_torch.metrics.token import AvgMetric
 from hma_tpu_torch.parallel import distributed as dist
-from hma_tpu_torch.parallel.sharded_eval import round_batch, setup_eval_mesh
+from hma_tpu_torch.parallel.sharded_eval import round_batch, setup_eval_mesh, shard_params
 from hma_tpu_torch.rollout.decode import decode_clips, load_svd_decoder
 from hma_tpu_torch.rollout.mar import generate_latents, teacher_forced_latents
 from hma_tpu_torch.train.trainer import _pad_actions
@@ -118,9 +120,11 @@ def main(argv=None):
     if args.use_wandb:
         raise NotImplementedError(WANDB)
     dist.init_distributed(device=args.device)
-    device = setup_eval_mesh(fsdp=args.fsdp, tp=args.tp, sp=args.sp, device=args.device)
+    device, mesh = setup_eval_mesh(fsdp=args.fsdp, tp=args.tp, sp=args.sp,
+                                   device=args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model, config = load_mar_model(args.checkpoint_dir, device, dtype)
+    model = shard_params(model, mesh)
     dataset = RawFeatureDataset(args.val_data_dir, window_size=config.T,
                                 use_actions=config.use_actions, domain=args.domain)
     domain = args.domain or dataset.name

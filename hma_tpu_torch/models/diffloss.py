@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.fsdp import FSDPModule
 from torch.nn import functional as F
 
 from hma_tpu_torch.diffusion.gaussian import (
@@ -417,14 +418,22 @@ class DiffLoss(nn.Module):
         """(fc_params, schedule table, packed weights) of one domain on
         `device`, made once and kept while the head's parameters stay as they
         are: a rollout samples 16 times a frame from frozen weights. The
-        packed buffers are the kernel's and are None on the CPU."""
-        state = tuple((p.data_ptr(), p._version) for p in self.net.parameters())
-        key = (domain_id, str(device))
-        hit = self._loop_cache.get(key)
-        if hit is None or hit[0] != state:
-            fc = self._loop_kernel_fc_params(domain_id)
-            tbl = torch.from_numpy(schedule_table(self.gen_sched)).to(device)
-            packed = (pack_weights(fc, self.depth, self.dtype)
-                      if device.type == "cuda" else None)
-            hit = self._loop_cache[key] = (state, fc, tbl, packed)
-        return hit[1:]
+        packed buffers are the kernel's and are None on the CPU.
+
+        A head sharded by FSDP2 (`parallel.mesh.shard_model`) samples inside
+        its gathered `sample`; its whole parameters live in storage that
+        FSDP2 frees after the call and refills, with new values, at the next,
+        so nothing is kept: they are read (and packed) at every call."""
+        sharded = isinstance(self, FSDPModule)
+        if not sharded:
+            state = tuple((p.data_ptr(), p._version) for p in self.net.parameters())
+            key = (domain_id, str(device))
+            hit = self._loop_cache.get(key)
+            if hit is not None and hit[0] == state:
+                return hit[1:]
+        fc = self._loop_kernel_fc_params(domain_id)
+        tbl = torch.from_numpy(schedule_table(self.gen_sched)).to(device)
+        packed = pack_weights(fc, self.depth, self.dtype) if device.type == "cuda" else None
+        if not sharded:
+            self._loop_cache[key] = (state, fc, tbl, packed)
+        return fc, tbl, packed

@@ -240,8 +240,12 @@ class STMAR(nn.Module):
             action_mask = (torch.arange(T, device=dev)[None, :] >= t0.reshape(B, 1))
             action_mask = action_mask.to(self.dtype)[..., None, None]
 
-        z, action_latents = self.compute_latents(x, action_ids, domain_id, action_mask,
-                                                 dropout=dropout)
+        # the class's function: under fsdp the instance's compute_latents is
+        # FSDP2's gathering wrapper (parallel.mesh.shard_model), which must
+        # not nest inside forward's (it would reduce the root's grads before
+        # mask_token's arrives)
+        z, action_latents = type(self).compute_latents(self, x, action_ids, domain_id,
+                                                       action_mask, dropout=dropout)
         target = patchify(labels, cfg.patch_size)
         patch_mask = (patchify(mask[..., None].float(), cfg.patch_size).sum(-1) > 0).float()
         rows_z = z.reshape(-1, cfg.d_model)

@@ -225,8 +225,10 @@ class STMaskGIT(nn.Module):
                 lambda m, g: torch.rand(m, T, 1, generator=g, device=dev), B,
                 generator) < drop_ratio
             action_mask = action_mask[..., None].to(self.dtype)
-        logits_CTHW, action_pred = self.compute_logits(input_ids, action_ids, domain_id,
-                                                       action_mask, dropout)
+        # the class's function, not FSDP2's wrapper on the instance (see
+        # STMAR.forward)
+        logits_CTHW, action_pred = type(self).compute_logits(self, input_ids, action_ids,
+                                                             domain_id, action_mask, dropout)
         if logits_CTHW is not None:
             relevant = input_ids.reshape(B, T, h, w)[:, 1:] == self.mask_token_id
             loss, acc = self.compute_video_loss_and_acc(

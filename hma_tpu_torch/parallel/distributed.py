@@ -5,7 +5,10 @@ process group (NCCL on `cuda:LOCAL_RANK`, gloo when the caller asks for the
 CPU), every process runs the same seeded sampler and loads its contiguous
 share of each global batch (`local_slice`) and its rows of the batch's
 random draws (`rank_rows`, `draw_rows`), and the train and eval steps sum
-their gradients, loss denominators and metrics over the group.
+their gradients, loss denominators and metrics over the group. The group
+is the mesh's data axes ("dp" and "fsdp" flattened, `mesh.data_group`):
+with tp and sp at 1 every process, so the data degree dp * fsdp is the
+process count and the helpers below hold for any (dp, fsdp) split.
 `hma_tpu` has one process a host driving every local device; its helpers'
 names and arithmetic are kept. With no launcher environment everything is
 the single-process identity.

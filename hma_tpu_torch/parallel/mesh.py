@@ -2,44 +2,60 @@
 `DeviceMesh` with `hma_tpu`'s axes ("dp", "fsdp", "tp", "sp"), one process
 a card.
 
-Only the data-parallel axis is ported: parameters and optimizer state are
-replicated, each rank runs the kernels on its share of the batch (its
+The data axes are "dp" and "fsdp", as `hma_tpu`'s DATA_AXES: the batch's
+rows split over dp * fsdp ranks in dp-major order (each rank's
 `distributed.local_slice`, the counterpart of `batch_sharding`), and the
-train step sums the gradients over the "dp" group. fsdp (FSDP2, with
-`param_spec`) is ROADMAP.md Queue A item 10b, tp and sp item 10c; asking
-for them raises. Where `hma_tpu` builds a mesh over a subset of the devices
-when the factors ask for fewer, the port raises: the factors must fill the
-world exactly.
+train step's loss denominators, gradients and metrics are summed over them.
+Under "dp" alone parameters and optimizer state are replicated and the
+step sums the gradients itself. Under "fsdp" (`shard_model`) they are
+sharded by torch's FSDP2 (`fully_shard`) after `param_spec`, `hma_tpu`'s
+rule; as HSDP (replicated over "dp", sharded over "fsdp") when both axes
+are above 1. FSDP2 gathers a block's parameters whole for its forward and
+backward, so the kernels read whole parameters as before, and reduces the
+gradients over both axes.
+
+tp and sp are ROADMAP.md Queue A item 10c; asking for them raises. Where
+`hma_tpu` builds a mesh over a subset of the devices when the factors ask
+for fewer, the port raises: the factors must fill the world exactly.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
 
 from hma_tpu_torch.parallel import distributed
 
 AXES = ("dp", "fsdp", "tp", "sp")
-UNPORTED = ("not ported yet: fsdp is ROADMAP.md Queue A item 10b, tp and sp "
-            "item 10c")
+UNPORTED = "not ported yet: tp and sp are ROADMAP.md Queue A item 10c"
+FSDP_MIN_SIZE = 2**16  # `hma_tpu`'s param_spec shards parameters of this many elements up
+# the root model's methods that read its parameters outside `forward`: FSDP2
+# gathers the root's parameters around each (the rollouts' entry points)
+ROOT_METHODS = ("compute_logits", "frame_logits", "window_logits", "compute_latents",
+                "frame_latents", "sample_tokens", "sample_actions")
 
 
 def check_factors(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
                   sp: int = 1, world: Optional[int] = None) -> int:
     """The dp degree of (dp, fsdp, tp, sp) over `world` ranks (default: the
-    process group's): dp defaults to the world. Raises for fsdp, tp or sp
-    above 1 and for factors that ask for more or fewer ranks than there
-    are."""
-    if max(fsdp, tp, sp) > 1:
-        raise NotImplementedError(f"--fsdp {fsdp} --tp {tp} --sp {sp}: {UNPORTED}")
+    process group's): dp defaults to world // (fsdp * tp * sp), as in
+    `hma_tpu`. Raises for tp or sp above 1 and for factors that ask for
+    more or fewer ranks than there are (fsdp above 1 in one process among
+    them)."""
+    if max(tp, sp) > 1:
+        raise NotImplementedError(f"--tp {tp} --sp {sp}: {UNPORTED}")
     world = distributed.process_count() if world is None else world
-    dp = world if dp is None else dp
-    if dp * fsdp * tp * sp != world:
+    dp = world // (fsdp * tp * sp) if dp is None else dp
+    if dp < 1 or dp * fsdp * tp * sp != world:
         raise ValueError(f"mesh (dp {dp}, fsdp {fsdp}, tp {tp}, sp {sp}) needs "
-                         f"{dp * fsdp * tp * sp} processes; the world has {world}: "
-                         "launch one process a card with torchrun")
+                         f"{max(dp, 1) * fsdp * tp * sp} processes; the world has "
+                         f"{world}: launch one process a card with torchrun")
     return dp
 
 
@@ -55,10 +71,16 @@ def make_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
     return init_device_mesh(device_type, (dp, fsdp, tp, sp), mesh_dim_names=AXES)
 
 
+def data_group(mesh: DeviceMesh):
+    """The process group of the data axes ("dp", "fsdp") flattened: with tp
+    and sp at 1 (`check_factors` refuses more), every rank of the mesh."""
+    return dist.group.WORLD
+
+
 def default_mesh_factors(n: int) -> tuple[int, int, int, int]:
     """`hma_tpu`'s (dp, fsdp, tp, sp) factorisation of n devices (sp 2 from
-    8, then tp 2 from 4, then fsdp 2 from 2); above one device it asks for
-    axes that are not ported, so `make_mesh` refuses it."""
+    8, then tp 2 from 4, then fsdp 2 from 2); from 4 devices up it asks for
+    tp or sp, which `make_mesh` refuses."""
     sp = 2 if n % 8 == 0 and n >= 8 else 1
     rem = n // sp
     tp = 2 if rem % 2 == 0 and rem >= 4 else 1
@@ -66,3 +88,105 @@ def default_mesh_factors(n: int) -> tuple[int, int, int, int]:
     fsdp = 2 if rem % 2 == 0 and rem >= 2 else 1
     dp = rem // fsdp
     return dp, fsdp, tp, sp
+
+
+def param_spec(shape, fsdp: int, transposed: bool = False) -> Optional[int]:
+    """The dimension `hma_tpu`'s param_spec shards over "fsdp" (tp 1), or
+    None where it replicates: the largest dimension that `fsdp` divides
+    (the first of equals) of a parameter of at least FSDP_MIN_SIZE
+    elements. `transposed`: the parameter is an nn.Linear weight (out, in),
+    which `hma_tpu` holds as its kernel (in, out); the rule then runs on the
+    kernel's shape and the dimension returned is the weight's."""
+    shape = tuple(shape)
+    if fsdp <= 1 or math.prod(shape) < FSDP_MIN_SIZE:
+        return None
+    jax_shape = shape[::-1] if transposed else shape
+    for i in sorted(range(len(jax_shape)), key=lambda i: -jax_shape[i]):
+        if jax_shape[i] % fsdp == 0:
+            return len(shape) - 1 - i if transposed else i
+    return None
+
+
+def shard_dim(module: nn.Module, leaf: str, p: torch.Tensor, fsdp: int) -> int:
+    """The dimension FSDP2 shards parameter `leaf` of `module` on: the one
+    `param_spec` names. FSDP2 cannot leave one parameter of a group
+    replicated, so where `hma_tpu` replicates (under FSDP_MIN_SIZE elements,
+    or no dimension divides) the port shards the last dimension (unevenly
+    where it must). That moves no number, and it keeps a domain-stacked
+    table's rows (dimension 0) whole on every rank."""
+    transposed = isinstance(module, nn.Linear) and leaf == "weight" and p.ndim == 2
+    dim = param_spec(p.shape, fsdp, transposed)
+    return p.ndim - 1 if dim is None else dim
+
+
+def _fsdp_modules(model: nn.Module):
+    from hma_tpu_torch.models.diffloss import DiffLoss
+    from hma_tpu_torch.models.st_transformer import STBlock
+
+    blocks = [(m, ("frame_step", "window_step")) for m in model.modules()
+              if isinstance(m, STBlock)]
+    heads = [(m, ("loss", "sample")) for m in model.modules() if isinstance(m, DiffLoss)]
+    return blocks + heads + [(model, tuple(n for n in ROOT_METHODS if hasattr(model, n)))]
+
+
+def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
+    """Shard `model`'s parameters over the mesh's "fsdp" axis with FSDP2, in
+    place (the counterpart of `make_param_shardings` and `device_put`):
+    one `fully_shard` group per STBlock and per diffusion head (`DiffLoss`),
+    then the root with the rest. Each parameter is Shard(`shard_dim`); with
+    dp above 1 the groups are HSDP over ("dp", "fsdp"). The methods that
+    read a group's parameters besides `forward` (the blocks' cached steps,
+    the heads' loss and sampler, the root's rollout entry points) gather
+    them too. The gradients are summed over the data axes, not averaged:
+    the train step's loss is already this rank's share of the global-batch
+    mean. Returns `model`, whose parameters are now DTensors."""
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+
+    fsdp = mesh["fsdp"].size()
+    dims = {id(p): shard_dim(mod, leaf, p, fsdp) for mod in model.modules()
+            for leaf, p in mod.named_parameters(recurse=False)}
+    shard_mesh = mesh["dp", "fsdp"] if mesh["dp"].size() > 1 else mesh["fsdp"]
+    for mod, methods in _fsdp_modules(model):
+        fully_shard(mod, mesh=shard_mesh, shard_placement_fn=lambda p: Shard(dims[id(p)]))
+        for name in methods:
+            register_fsdp_forward_method(mod, name)
+        mod.set_gradient_divide_factor(1.0)
+        if hasattr(mod, "set_force_sum_reduction_for_comms"):  # gloo has no PREMUL_SUM
+            mod.set_force_sum_reduction_for_comms(True)
+    return model
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (its storage, written in place by an
+    update), or `t` itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def shard_slices(t: torch.Tensor) -> tuple:
+    """The index of this rank's shard of DTensor `t` in its global tensor:
+    one slice a dimension (every dimension whole for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return tuple(slice(None) for _ in t.shape)
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                          t.placements)
+    return tuple(slice(o, o + s) for s, o in zip(shape, offset))
+
+
+def local_part(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's part of `full` (a whole tensor of `like`'s global shape),
+    sharded as `like` is."""
+    return full[shard_slices(like)]
+
+
+def shard_group(t: torch.Tensor):
+    """The process group over which DTensor `t` is sharded (its mesh's last
+    dimension: "fsdp"), or None for a plain tensor."""
+    return t.device_mesh.get_group(t.device_mesh.ndim - 1) if isinstance(t, DTensor) else None
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor: a DTensor gathered (a collective: every rank of its
+    mesh calls it), anything else as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t

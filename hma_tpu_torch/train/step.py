@@ -46,6 +46,15 @@ summed over the ranks; the NaN guard then decides the same on every rank.
 A rank draws its rows of the global batch's dropout masks, diffusion noise
 and action drops (`generators`), so that N ranks take the step one process
 takes on the whole batch.
+
+fsdp (a model sharded by `parallel.mesh.shard_model`, its parameters
+DTensors): FSDP2 sums the gradients over the data axes itself (reduce-
+scatter, and an all-reduce over "dp" under HSDP), so the step does not; the
+optimizers update each rank's shards (`to_local()`), with the moments
+sharded as their parameters are, the clip's global norm summed over the
+shards and the low-precision moments' random bits drawn at each leaf's
+global shape (`MomentNoise`), so the ranks take the step one process takes.
+Sliced gradients under fsdp are ROADMAP.md Queue A item 10e and raise.
 """
 
 from __future__ import annotations
@@ -56,11 +65,20 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from hma_tpu_torch.models.action_stems import DomainLayerNorm
 from hma_tpu_torch.models.attention import LayerNorm
 from hma_tpu_torch.parallel.distributed import all_reduce_sum_, rank_rows
+from hma_tpu_torch.parallel.mesh import (
+    full,
+    local,
+    local_part,
+    shard_group,
+    shard_slices,
+)
 from hma_tpu_torch.train.lowp import (
     DENSE_TAG,
     SLICED_TAG,
@@ -70,6 +88,9 @@ from hma_tpu_torch.train.lowp import (
 )
 
 Schedule = Callable[[int], float]
+SLICED_FSDP = ("sliced gradients under fsdp are not ported yet (ROADMAP.md Queue A "
+               "item 10e): the one-row swap would replace parameters that FSDP2 owns; "
+               "use --sliced_grads off or auto")
 
 
 def custom_cosine_schedule(base_lr: float, warmup_steps: int, max_steps: int,
@@ -169,7 +190,13 @@ class AdamW:
     take lr / width_mult and weight decay * width_mult (decayed whatever
     `decay` says), as `hma_tpu`'s optax.multi_transform partition does.
     With `moment_dtype` bf16, m and v are stored in bf16 and written with
-    stochastic rounding (`lowp.adamw_lowp_`)."""
+    stochastic rounding (`lowp.adamw_lowp_`).
+
+    On sharded parameters (DTensors, `parallel.mesh.shard_model`) every
+    update runs on this rank's shards: the moments are DTensors sharded as
+    their parameters, the grad norm is the square root of the squared
+    shard norms summed over the shard group, and a low-precision update
+    takes its shard's part of bits drawn at the leaf's global shape."""
 
     def __init__(self, params: dict[str, torch.Tensor],
                  learning_rate: Union[float, Schedule], weight_decay: float,
@@ -188,20 +215,44 @@ class AdamW:
         self.m = {n: torch.zeros_like(p, dtype=self.moment_dtype) for n, p in params.items()}
         self.v = {n: torch.zeros_like(p, dtype=self.moment_dtype) for n, p in params.items()}
         self.count = 0  # updates so far: Adam's count and the schedule's
+        sharded = [isinstance(p, DTensor) for p in params.values()]
+        if any(sharded) and not all(sharded):
+            raise ValueError("fsdp shards every parameter of the model or none")
+        self.shard_group = shard_group(next(iter(params.values()))) if any(sharded) else None
+        # each leaf's global shape and its shard's index in it, for the bits
+        self.shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self.parts = {n: shard_slices(p) for n, p in params.items()}
+
+    def _norm(self, grads) -> torch.Tensor:
+        """The global norm of the (local) grads: over every shard when the
+        parameters are sharded."""
+        if self.shard_group is None:
+            return torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
+        sq = torch.stack([torch.linalg.vector_norm(g).square() for g in grads]).sum()
+        dist.all_reduce(sq, group=self.shard_group)
+        return sq.sqrt()
 
     def _update(self, n: str, p, g, m, v, count: int, lr: float, ok_f,
-                noise: Optional[dict], draw: Optional[MomentNoise], leaf: int) -> None:
-        """Adam update of p (one parameter or its row) with leaf n's lr and
-        decay; low-precision moments take leaf n's bits from `noise` where
-        it is given, else from `draw`."""
+                noise: Optional[dict], draw: Optional[MomentNoise], leaf: int,
+                row: bool = False) -> None:
+        """Adam update of p (this rank's shard of one parameter, or of its
+        row with `row`) with leaf n's lr and decay; low-precision moments
+        take this shard's part of leaf n's bits (global shape) from `noise`
+        where it is given, else from `draw`."""
         args = (p, g, m, v, count, lr * self.lr_mult[n], self.wd[n], self.b1, self.b2,
                 self.eps, ok_f)
         if m.dtype == torch.float32:
             _adamw_(*args)
-        elif noise is not None:
-            adamw_lowp_(*args, *noise[n])
+            return
+        shape, part = self.shapes[n], self.parts[n]
+        if row:
+            shape, part = shape[1:], part[1:]
+        if noise is not None:
+            adamw_lowp_(*args, *(bits[part] for bits in noise[n]))
         else:
-            adamw_lowp_(*args, draw.bits(leaf, 0, g.shape), draw.bits(leaf, 1, g.shape))
+            adamw_lowp_(*args, draw.bits(leaf, 0, shape, part),
+                        draw.bits(leaf, 1, shape, part))
 
     def _draw(self, tag: int, count: int, device) -> Optional[MomentNoise]:
         return None if self.moment_dtype == torch.float32 else MomentNoise(tag, count, device)
@@ -210,9 +261,10 @@ class AdamW:
              ok_loss: torch.Tensor, noise: Optional[dict] = None) -> torch.Tensor:
         """Update params in place; returns the grad norm (before the clip).
         noise: optional {name: (m bits, v bits)}, the stochastic rounding's
-        bits of a low-precision update, in place of the drawn ones."""
-        g_norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads.values()]))
+        bits of a low-precision update (at the global shapes), in place of
+        the drawn ones."""
+        grads = {n: local(g) for n, g in grads.items()}
+        g_norm = self._norm(grads.values())
         ok = ok_loss & torch.isfinite(g_norm)
         # a skipped step clips zero grads: its norm is 0, its scale 1
         norm = torch.where(ok, g_norm, 0.0)
@@ -225,17 +277,21 @@ class AdamW:
         draw = self._draw(DENSE_TAG, self.count, g_norm.device)
         for i, (n, p) in enumerate(params.items()):
             g = torch.where(ok, grads[n], 0.0) * scale
-            self._update(n, p.data, g, self.m[n], self.v[n], self.count, lr, ok_f,
-                         noise, draw, i)
+            self._update(n, local(p.data), g, local(self.m[n]), local(self.v[n]),
+                         self.count, lr, ok_f, noise, draw, i)
         return g_norm
 
     def state_dict(self) -> dict:
+        """The moments as they are held (DTensors when sharded: a checkpoint
+        gathers them whole) and the count."""
         return {"m": self.m, "v": self.v, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
+        """From whole moments (any sharding's checkpoint): each rank keeps
+        its shards' part."""
         for n in self.m:
-            self.m[n].copy_(state["m"][n])
-            self.v[n].copy_(state["v"][n])
+            for mine, given in ((self.m[n], state["m"][n]), (self.v[n], state["v"][n])):
+                local(mine).copy_(local_part(full(given), mine))
         self.count = int(state["count"])
 
 
@@ -257,6 +313,12 @@ class DomainSlicedAdamW(AdamW):
         self.stacked = stacked
         self.num_domains = num_domains
         self.domain_count = [0] * num_domains
+        for n, p in params.items():
+            if (stacked[n] and isinstance(p, DTensor)
+                    and self.parts[n][0] != slice(0, p.shape[0])):
+                raise NotImplementedError(
+                    f"{n} is sharded on its domain axis: a domain's row must be "
+                    "whole on every rank (parallel.mesh.shard_dim)")
 
     def _row(self, g: torch.Tensor, d: int) -> torch.Tensor:
         """Row d of a stacked table's grad: index 0 of a one-row grad (with
@@ -269,9 +331,9 @@ class DomainSlicedAdamW(AdamW):
         leaves' bits are drawn from the global count after this update, the
         rows' from it before, as `hma_tpu` keys them."""
         d = int(domain_id)
-        rows = {n: (self._row(g, d) if self.stacked[n] else g) for n, g in grads.items()}
-        g_norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in rows.values()]))
+        rows = {n: (self._row(local(g), d) if self.stacked[n] else local(g))
+                for n, g in grads.items()}
+        g_norm = self._norm(rows.values())
         ok = ok_loss & torch.isfinite(g_norm)
         scale = torch.where(g_norm < self.max_grad_norm, 1.0,
                             self.max_grad_norm / torch.clamp(g_norm, min=1e-20))
@@ -283,12 +345,12 @@ class DomainSlicedAdamW(AdamW):
         dense_draw = self._draw(DENSE_TAG, self.count, g_norm.device)
         for i, (n, p) in enumerate(params.items()):
             g = torch.where(ok, rows[n] * scale, 0.0)
+            p, m, v = local(p.data), local(self.m[n]), local(self.v[n])
             if self.stacked[n]:
-                self._update(n, p.data[d], g, self.m[n][d], self.v[n][d],
-                             self.domain_count[d], lr, ok_f, noise, rows_draw, i)
+                self._update(n, p[d], g, m[d], v[d], self.domain_count[d], lr, ok_f,
+                             noise, rows_draw, i, row=True)
             else:
-                self._update(n, p.data, g, self.m[n], self.v[n], self.count, lr, ok_f,
-                             noise, dense_draw, i)
+                self._update(n, p, g, m, v, self.count, lr, ok_f, noise, dense_draw, i)
         return g_norm
 
     def state_dict(self) -> dict:
@@ -424,10 +486,17 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
     gradients, grads for the active domain's row of each stacked table
     only (`domain_rows`). group: the data-parallel process group (see the
     module docstring); batch is then this rank's rows of the global batch.
+    On a model sharded by `parallel.mesh.shard_model` FSDP2 has summed the
+    gradients over the group; sliced gradients then raise (item 10e).
+    `noise` (a call's keyword): the low-precision moments' bits, as
+    `AdamW.step` takes them.
     """
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
+    sharded = isinstance(next(iter(params.values())), DTensor)
     stacked = []
+    if stacked_mask is not None and sharded:
+        raise NotImplementedError(SLICED_FSDP)
     if stacked_mask is not None:
         if not isinstance(tx, DomainSlicedAdamW):
             raise ValueError("sliced gradients need the domain-sliced optimizer "
@@ -466,7 +535,8 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
                 p.grad.mul_(1.0 / n)
         return {k: v * (1.0 / n) for k, v in metrics.items()}
 
-    def train_step(batch: dict, rng: int = 0, draws: Optional[dict] = None) -> dict:
+    def train_step(batch: dict, rng: int = 0, draws: Optional[dict] = None,
+                   noise: Optional[dict] = None) -> dict:
         d = int(batch.get("domain_id", 0))
         for p in params.values():
             p.grad = None
@@ -478,11 +548,13 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in leaves.items()}
         if group is not None:
-            all_reduce_sum_(list(grads.values()), group)
+            if not sharded:  # FSDP2's reduce-scatter has summed sharded ones
+                all_reduce_sum_(list(grads.values()), group)
             metrics = _sum_metrics(metrics, group)
         ok_loss = torch.isfinite(metrics["loss"])
-        with torch.no_grad():
-            g_norm = tx.step(params, grads, d, ok_loss)
+        with torch.no_grad():  # the bits only where handed in
+            g_norm = tx.step(params, grads, d, ok_loss,
+                             **({} if noise is None else {"noise": noise}))
         for p in leaves.values():
             p.grad = None
         ok = ok_loss & torch.isfinite(g_norm)

@@ -24,19 +24,25 @@ rounding; checkpoints hold them in bf16. `--lr_scheduler_type` other than
 
 Sliced gradients (`--sliced_grads`, `train/step.py`): "auto" turns them on
 when the domain-sliced AdamW is active and the world is one process, as
-`hma_tpu` does with no mesh; "on" and "off" force them.
+`hma_tpu` does with no mesh; "on" and "off" force them ("on" under fsdp
+raises: ROADMAP.md Queue A item 10e).
 
-Data parallelism (the mesh's "dp" axis, `parallel/`): launched with
-torchrun (or `hma_tpu`'s HMA_TPU_* variables), one process a card. The
-global batch is the per-device batch times the world size and the LR scales
-by the effective batch; every rank runs the same sampler stream (so every
-rank trains the same domain), loads and collates its rows of each global
-batch, draws its rows of the batch's random draws, and the step sums the
-gradients over the ranks (the loss is the global batch's mean), so that N
-ranks train as one process on the global batch. Parameters and moments are replicated; rank 0 logs
+Data parallelism over the mesh's data axes "dp" and "fsdp" (`parallel/`):
+launched with torchrun (or `hma_tpu`'s HMA_TPU_* variables), one process a
+card, the factors filling the world. The global batch is the per-device
+batch times dp * fsdp (the world) and the LR scales by the effective batch;
+every rank runs the same sampler stream (so every rank trains the same
+domain), loads and collates its rows of each global batch, draws its rows
+of the batch's random draws, and the gradients are summed over the ranks
+(the loss is the global batch's mean), so that N ranks train as one process
+on the global batch. Under "dp" alone parameters and moments are
+replicated and the step sums the gradients. With `--fsdp` above 1 the model
+is sharded by FSDP2 (`parallel.mesh.shard_model`, after rank 0's initial
+weights or the resumed checkpoint are in place), the optimizer updates
+each rank's shards, and a checkpoint gathers them whole first. Rank 0 logs
 and writes the checkpoints, every rank reads them. Not ported (they raise):
-fsdp, tp, sp above 1 (ROADMAP.md Queue A items 10b, 10c), the native loader
-with more than one process, as in `hma_tpu`, and wandb.
+tp, sp above 1 (ROADMAP.md Queue A item 10c), the native loader with more
+than one process, as in `hma_tpu`, and wandb.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from hma_tpu_torch.metrics.lpips import make_lpips_fn
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
 from hma_tpu_torch.parallel import distributed
-from hma_tpu_torch.parallel.mesh import check_factors, make_mesh
+from hma_tpu_torch.parallel.mesh import check_factors, data_group, make_mesh, shard_model
 from hma_tpu_torch.rollout.decode import make_token_decoder
 from hma_tpu_torch.rollout.maskgit import generate_tokens
 from hma_tpu_torch.tokenizer.convert import load_magvit2
@@ -77,6 +83,7 @@ from hma_tpu_torch.train.step import (
     warmup_cosine_decay_schedule,
 )
 from hma_tpu_torch.utils.checkpoint import (
+    gather_state,
     latest_checkpoint,
     load_train_state,
     save_checkpoint,
@@ -147,7 +154,9 @@ def _refuse_unported(args: TrainArgs) -> None:
     if args.model_type not in ("discrete", "continuous"):
         raise ValueError(f"--model_type {args.model_type}")
     unported = {
-        "--fsdp/--tp/--sp above 1 (items 10b, 10c)": max(args.fsdp, args.tp, args.sp) > 1,
+        "--tp/--sp above 1 (item 10c)": max(args.tp, args.sp) > 1,
+        "--sliced_grads on with --fsdp above 1 (item 10e)": (args.sliced_grads == "on"
+                                                             and args.fsdp > 1),
         "--report_to wandb": args.report_to == "wandb",
     }
     asked = [k for k, v in unported.items() if v]
@@ -355,8 +364,8 @@ def run_training(args: TrainArgs) -> dict:
     multi = distributed.init_distributed(device=args.device)
     world = distributed.process_count()
     check_factors(args.dp, args.fsdp, args.tp, args.sp, world)
-    mesh = make_mesh(dp=args.dp) if multi else None
-    group = mesh.get_group("dp") if mesh is not None else None
+    mesh = make_mesh(dp=args.dp, fsdp=args.fsdp) if multi else None
+    group = data_group(mesh) if mesh is not None else None
     if args.use_native_loader and world > 1:
         raise ValueError("--use_native_loader is one process only: data-parallel "
                          "ranks load their rows through the Python assembler")
@@ -371,7 +380,7 @@ def run_training(args: TrainArgs) -> dict:
         build_domain_datasets(args, config))
     config = configure_model(args, config, domains, action_dims, action_stats, shared)
 
-    B = args.per_device_train_batch_size * world  # the global batch a microbatch
+    B = args.per_device_train_batch_size * world  # the global batch a microbatch (dp * fsdp)
     effective_batch = B * args.gradient_accumulation_steps
     # this rank's rows of each effective batch: its share of every microbatch
     rows = (None if world == 1 else np.concatenate(
@@ -402,6 +411,13 @@ def run_training(args: TrainArgs) -> dict:
         remat=args.grad_checkpointing)
     if group is not None:  # every rank starts from rank 0's draw
         distributed.broadcast_(list(model.parameters()), src=0, group=group)
+    start_step = 0
+    resume = args.resume_from_checkpoint
+    if resume == "latest":
+        resume = latest_checkpoint(args.output_dir)
+    if resume:
+        model_state, opt_state, start_step = load_train_state(resume, device)
+        model.load_state_dict(model_state)
     mup_mult = config.d_model / 256.0 if args.mu_transfer else None
     opt_kw = dict(learning_rate=schedule, weight_decay=args.weight_decay,
                   beta1=args.adam_beta_1, beta2=args.adam_beta_2, eps=args.adam_eps,
@@ -412,21 +428,17 @@ def run_training(args: TrainArgs) -> dict:
     smask = None
     if args.domain_sliced_adam and config.num_domains > 1:
         smask = stacked_param_mask(model, config)
+    if args.fsdp > 1:  # the whole weights are in place: shard them
+        shard_model(model, mesh)
+    if smask is not None:
         tx = make_domain_sliced_optimizer(model, **opt_kw, stacked_mask=smask,
                                           num_domains=config.num_domains)
     else:
         tx = make_optimizer(model, **opt_kw)
+    if resume:
+        tx.load_state_dict(opt_state)
     sliced_grads = smask is not None and (
         args.sliced_grads == "on" or (args.sliced_grads == "auto" and world == 1))
-
-    start_step = 0
-    resume = args.resume_from_checkpoint
-    if resume == "latest":
-        resume = latest_checkpoint(args.output_dir)
-    if resume:
-        model_state, opt_state, start_step = load_train_state(resume, device)
-        model.load_state_dict(model_state)
-        tx.load_state_dict(opt_state)
 
     # The C++ loader implements neither per-item action dropping nor the
     # truncated one-batch dataset of overfit_first_batch: with either, the
@@ -475,9 +487,11 @@ def run_training(args: TrainArgs) -> dict:
                   if str(args.checkpointing_steps).isdigit() else None)
 
     def save(tag, **kw):
-        if distributed.is_primary():  # the state is replicated: one writer
-            save_checkpoint(args.output_dir, tag, model.state_dict(), config,
-                            opt_state=tx.state_dict(), step=step_i, **kw)
+        # every rank gathers fsdp's shards whole (a collective); one writer
+        model_state, opt_state = gather_state(model.state_dict()), gather_state(tx.state_dict())
+        if distributed.is_primary():
+            save_checkpoint(args.output_dir, tag, model_state, config,
+                            opt_state=opt_state, step=step_i, **kw)
 
     step_i = start_step
     # replay the epoch and intra-epoch sampler position of a resumed run

@@ -13,10 +13,14 @@ of each stacked table only ("auto": with the domain-sliced AdamW on one
 process). Data-parallel on several cards with torchrun, one process a card:
 
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... [--dp 8]
+    torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --fsdp 8
+    torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --dp 2 --fsdp 4
 
-(`--per_device_train_batch_size` is each card's share; add `--device cpu`
-for gloo processes on the CPU). Flags for what it does not port yet
-(`--fsdp/--tp/--sp` above 1, wandb) raise.
+(`--per_device_train_batch_size` is each card's share; `--fsdp` shards the
+parameters and moments with FSDP2, as HSDP with `--dp` above 1 too; add
+`--device cpu` for gloo processes on the CPU). Flags for what it does not
+port yet (`--tp/--sp` above 1, `--sliced_grads on` with `--fsdp`, wandb)
+raise.
 """
 
 from __future__ import annotations

@@ -9,6 +9,13 @@ under `--adam_moment_dtype bfloat16`, and the step). `step_<n>` and
 other directory (`final_checkpt`, `epoch_1_pinned`) ever is.
 `load_checkpoint` builds the model for rollout from a checkpoint directory
 or from a run directory (its newest one).
+
+A checkpoint holds whole tensors whatever the sharding it was written
+under: an fsdp run gathers each DTensor (`gather_state`, a collective that
+every rank calls) before rank 0 writes; a run loads the model's whole
+state before it shards the model, and `AdamW.load_state_dict` keeps each
+rank's part of the moments. So a checkpoint written under fsdp loads into
+one process, and the other way round.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig, load_config
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
+from hma_tpu_torch.parallel.mesh import full
 
 CONFIG_FILE = "config.json"
 STATE_FILE = "model.pt"
@@ -44,6 +52,14 @@ def save_checkpoint(output_dir: str, tag: str, model_state: dict,
     if keep_last:
         prune_checkpoints(output_dir, keep_last)
     return str(out)
+
+
+def gather_state(tree):
+    """`tree` (a state dict or the optimizer's state) with every DTensor
+    gathered whole: a collective, so every rank of the mesh calls it."""
+    if isinstance(tree, dict):
+        return {k: gather_state(v) for k, v in tree.items()}
+    return full(tree) if torch.is_tensor(tree) else tree
 
 
 def _to_cpu(tree):

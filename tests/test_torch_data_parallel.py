@@ -27,7 +27,7 @@ virtual CPU devices in this process.
   fid_latent at 1e-5 relative).
 - In this process: `local_slice`, `round_batch` and `data_degree` equal
   hma_tpu's under a faked world of 2; a rank's collate rows are the whole
-  batch's; a subset mesh, fsdp/tp/sp above 1 and "auto" raise.
+  batch's; a subset mesh, tp/sp above 1 and "auto" raise.
 """
 
 import json
@@ -252,9 +252,9 @@ def _initial_weights(argv: list):
     return model.state_dict(), config
 
 
-def _jax_train(root: Path, data: Path, init: dict, cfg) -> list:
-    """hma_tpu's `--dp 2` run on the same data and flags, in fp32, from
-    `init`: its loss at each step."""
+def _jax_train(root: Path, data: Path, init: dict, cfg, **factors) -> list:
+    """hma_tpu's `--dp 2` run (or with the mesh `factors`) on the same data
+    and flags, in fp32, from `init`: its loss at each step."""
     real = jax_trainer.TrainState
 
     def from_init(params, opt_state, step):
@@ -282,7 +282,8 @@ def _jax_train(root: Path, data: Path, init: dict, cfg) -> list:
             train_split=str(root / "split.yaml"), data_root=str(data), window_size=4,
             per_device_train_batch_size=2, per_device_eval_batch_size=1,
             learning_rate=3e-3, adam_eps=EPS, max_train_steps=3, eval_every_n_steps=1000,
-            max_eval_steps=1, num_warmup_steps=1, log_every=1, seed=3, dp=2))
+            max_eval_steps=1, num_warmup_steps=1, log_every=1, seed=3,
+            **(factors or {"dp": 2})))
     lines = [json.loads(l) for l in open(root / "jax" / "metrics.jsonl")]
     return [l["train/loss"] for l in lines if "train/loss" in l]
 
@@ -508,14 +509,17 @@ def test_collate_rows_are_the_whole_batch():
 
 
 def test_what_cannot_run_raises(monkeypatch, tmp_path):
-    # fsdp, tp and sp wait for ROADMAP A10b / A10c
-    for kw in ({"fsdp": 2}, {"tp": 2}, {"sp": 2}):
-        with pytest.raises(NotImplementedError, match="item 10b"):
+    # tp and sp wait for ROADMAP A10c (fsdp with them too)
+    for kw in ({"fsdp": 2, "sp": 2}, {"tp": 2}, {"sp": 2}):
+        with pytest.raises(NotImplementedError, match="item 10c"):
             port_mesh.check_factors(**kw, world=2)
     # factors the world cannot fill, more or fewer: no subset mesh
     for dp in (1, 4):
         with pytest.raises(ValueError, match="world has 2"):
             port_mesh.check_factors(dp, world=2)
+    for kw in ({"fsdp": 2}, {"dp": 2, "fsdp": 2}):  # one process: no group to shard over
+        with pytest.raises(ValueError, match="world has 1"):
+            port_mesh.check_factors(**kw, world=1)
     with pytest.raises(ValueError, match="world has 1"):
         port_mesh.make_mesh(dp=2)
     with pytest.raises(RuntimeError, match="process group"):

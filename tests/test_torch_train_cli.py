@@ -199,7 +199,7 @@ def test_nan_streak_aborts_and_unported_flags_raise(synth_env, monkeypatch):
     state = torch.load(out / "final_checkpt" / "train_state.pt", weights_only=True)
     assert state["step"] == 3
     assert all(m.dtype == torch.bfloat16 for m in state["opt_state"]["m"].values())
-    for flag in (["--fsdp", "2"], ["--tp", "2"]):
+    for flag in (["--sp", "2"], ["--tp", "2"], ["--sliced_grads", "on", "--fsdp", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_main(_train_argv(root, data, root / "no", *flag))
 

@@ -1,18 +1,25 @@
-"""Rank process of tests/test_torch_data_parallel.py (not a test module).
+"""Rank process of tests/test_torch_data_parallel.py and
+tests/test_torch_fsdp.py (not a test module).
 
 Launched twice with torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK,
-MASTER_ADDR, MASTER_PORT): each process joins the gloo group through
-`hma_tpu_torch.parallel.distributed.init_distributed(device="cpu")`, then
+MASTER_ADDR, MASTER_PORT) as `torch_dp_rank.py ROOT [FSDP]`: each process
+joins the gloo group through
+`hma_tpu_torch.parallel.distributed.init_distributed(device="cpu")`, makes
+the (dp, fsdp) mesh with fsdp FSDP (default 1: data parallelism alone; the
+flags in ROOT's argv files say the same; dp is the rest of the world), then
+(all but 3 with `--steps_only`, launched as any number of processes)
 
   1. runs `train_multi` for 3 steps from the test's initial weights, then
      again resumed from its step-2 checkpoint, recording every step's
      metrics and which ranks wrote checkpoints;
   2. runs `evaluate` and `evaluate_feature` over the two ranks;
   3. runs the port's train step on its rows of the global batches of
-     `<case>_case.pt` (`train_case`): both families with hma_tpu's draws
-     handed in (the discrete case with sliced gradients), once the test has
-     written them, and both families drawing their own dropout, action
-     drops and diffusion noise, and saves its parameters and moments;
+     `<case>_case.pt` (`train_case`; the cases `cases.json` names, by
+     default both families with hma_tpu's draws handed in, the discrete
+     case with sliced gradients, once the test has written them, and both
+     families drawing their own dropout, action drops and diffusion noise),
+     on a model sharded by FSDP2 under fsdp, and saves its parameters and
+     moments (gathered whole) and, sharded, each parameter's placement;
 
 and saves what the test compares. It imports no JAX.
 """
@@ -33,7 +40,7 @@ from hma_tpu_torch.evaluate_feature import main as evaluate_feature_main  # noqa
 from hma_tpu_torch.models.st_mar import STMAR  # noqa: E402
 from hma_tpu_torch.models.st_mask_git import STMaskGIT  # noqa: E402
 from hma_tpu_torch.parallel import distributed as dist  # noqa: E402
-from hma_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from hma_tpu_torch.parallel.mesh import data_group, full, make_mesh, shard_model  # noqa: E402
 from hma_tpu_torch.train import step as port_step  # noqa: E402
 from hma_tpu_torch.train import trainer  # noqa: E402
 from hma_tpu_torch.train_multi import main as train_main  # noqa: E402
@@ -48,13 +55,17 @@ def _rows_of(draw: torch.Tensor, rows: np.ndarray, B: int, mul: int) -> torch.Te
     return draw.reshape(mul, B, -1, *rest)[:, rows].reshape(-1, *rest)
 
 
-def train_case(spec: dict, group=None) -> dict:
+def train_case(spec: dict, group=None, mesh=None) -> dict:
     """The port's train step over `spec`'s global batches on this rank's
-    rows (every row without a group): the domain-sliced AdamW, sliced
-    gradients on the discrete card, `spec["draws"]` handed in where there
-    are some, grad accumulation over microbatches of `spec["microbatch"]`
-    global rows where it is set (a rank takes its rows of each). Returns
-    the parameters, moments, counts and every step's metrics."""
+    rows (every row without a group): the domain-sliced AdamW with
+    `spec["moment_dtype"]` moments (fp32 by default), sliced gradients on
+    the discrete card unless `spec["sliced"]` says otherwise,
+    `spec["draws"]` and the moments' bits `spec["noise"]` handed in where
+    there are some, grad accumulation over microbatches of
+    `spec["microbatch"]` global rows where it is set (a rank takes its rows
+    of each). With a `mesh` whose fsdp is above 1 the model is sharded by
+    FSDP2. Returns the parameters and moments (whole), the counts, every
+    step's metrics and, sharded, {name: (shard dim, local shape)}."""
     continuous = spec["continuous"]
     cls, cfg_cls = (STMAR, DiffusionGenieConfig) if continuous else (STMaskGIT, GenieConfig)
     cfg = cfg_cls(**spec["card"])
@@ -63,15 +74,20 @@ def train_case(spec: dict, group=None) -> dict:
     more = cfg_cls(**spec["card_more"])
     stacked = port_step.domain_stacked_mask(model, cls(more, dtype=torch.float32,
                                                        device="meta"))
+    sharded = mesh is not None and mesh["fsdp"].size() > 1
+    if sharded:
+        shard_model(model, mesh)
     tx = port_step.make_domain_sliced_optimizer(
         model, port_step.custom_cosine_schedule(LR, 1, 10), WD, eps=EPS,
-        stacked_mask=stacked, num_domains=cfg.num_domains)
+        stacked_mask=stacked, num_domains=cfg.num_domains,
+        moment_dtype=spec.get("moment_dtype"))
     world = 1 if group is None else dist.process_count()
     mb = spec.get("microbatch", 0)
+    sliced = spec.get("sliced", not continuous)
     step = port_step.make_train_step(
         model, tx, microbatch=mb // world, continuous=continuous,
         action_loss_weight=cfg.action_loss_weight,
-        stacked_mask=None if continuous else stacked, group=group)
+        stacked_mask=stacked if sliced else None, group=group)
     metrics = []
     for i, batch in enumerate(spec["batches"]):
         B = batch["input_ids"].shape[0]
@@ -83,27 +99,35 @@ def train_case(spec: dict, group=None) -> dict:
         if spec.get("draws"):
             draws = {k: _rows_of(v, rows, B, cfg.diffusion_batch_mul)
                      for k, v in spec["draws"][i].items()}
-        metrics.append({k: float(v) for k, v in step(local, rng=i, draws=draws).items()})
-    return {"params": {n: p.detach() for n, p in model.named_parameters()},
-            "m": tx.m, "v": tx.v, "count": tx.count, "domain_count": tx.domain_count,
-            "metrics": metrics}
+        noise = spec["noise"][i] if spec.get("noise") else None
+        metrics.append({k: float(v) for k, v in
+                        step(local, rng=i, draws=draws, noise=noise).items()})
+    out = {"params": {n: full(p.detach()) for n, p in model.named_parameters()},
+           "m": {n: full(m) for n, m in tx.m.items()},
+           "v": {n: full(v) for n, v in tx.v.items()},
+           "count": tx.count, "domain_count": tx.domain_count, "metrics": metrics}
+    if sharded:
+        out["placements"] = {n: (p.placements[-1].dim, tuple(p.to_local().shape))
+                             for n, p in model.named_parameters()}
+    return out
 
 
-def run_case(root: Path, case: str, group) -> None:
+def run_case(root: Path, case: str, group, mesh=None) -> None:
     path = root / f"{case}_case.pt"
     deadline = time.monotonic() + 600
     while not path.exists():  # the test writes it while this rank trains
         if time.monotonic() > deadline:
             raise TimeoutError(f"{path} never came")
         time.sleep(0.2)
-    torch.save(train_case(torch.load(path, weights_only=False), group),
+    torch.save(train_case(torch.load(path, weights_only=False), group, mesh),
                root / f"{case}_rank{dist.process_index()}.pt")
 
 
 def run_train_multi(root: Path) -> None:
     """The straight 3-step run and the run resumed from its step 2, both
-    from the test's initial weights; every step's metrics on this rank and
-    the ranks that wrote checkpoints."""
+    from the test's initial weights, and, where the test wrote one, a run
+    resumed from `port_one/step_2` (one process's checkpoint); every step's
+    metrics on this rank and the ranks that wrote checkpoints."""
     init = torch.load(root / "init.pt", weights_only=True)
 
     class Loaded(STMaskGIT):
@@ -139,21 +163,38 @@ def run_train_multi(root: Path) -> None:
     seen.clear()
     train_main([*argv, "--output_dir", str(root / "port_b"),
                 "--resume_from_checkpoint", str(root / "port_a" / "step_2")])
+    resumed = list(seen)
+    seen.clear()
+    if (root / "port_one" / "step_2").is_dir():
+        train_main([*argv, "--output_dir", str(root / "port_c"),
+                    "--resume_from_checkpoint", str(root / "port_one" / "step_2")])
     (root / f"train_rank{dist.process_index()}.json").write_text(json.dumps(
-        {"straight": straight, "resumed": seen, "writers": writers}))
+        {"straight": straight, "resumed": resumed, "from_one": seen, "writers": writers}))
 
 
 def main():
     root = Path(sys.argv[1])
+    fsdp = int(sys.argv[2]) if len(sys.argv) > 2 else 1
     assert dist.init_distributed(device="cpu")
-    assert dist.process_count() == 2
-    run_train_multi(root)
-    out = {"evaluate": evaluate_main(json.loads((root / "eval_argv.json").read_text())),
-           "evaluate_feature": evaluate_feature_main(
-               json.loads((root / "feature_argv.json").read_text()))}
-    group = make_mesh(dp=2).get_group("dp")
-    for case in ("discrete_drawn", "continuous_drawn", "discrete", "continuous"):
-        run_case(root, case, group)
+    out = {}
+    if "--steps_only" not in sys.argv:  # else only the step cases, any world
+        assert dist.process_count() == 2
+        run_train_multi(root)
+        out = {"evaluate": evaluate_main(json.loads((root / "eval_argv.json").read_text())),
+               "evaluate_feature": evaluate_feature_main(
+                   json.loads((root / "feature_argv.json").read_text()))}
+    mesh = make_mesh(fsdp=fsdp)
+    cases = root / "cases.json"
+    cases = (json.loads(cases.read_text()) if cases.exists() else
+             ("discrete_drawn", "continuous_drawn", "discrete", "continuous"))
+    for case in cases:
+        run_case(root, case, data_group(mesh), mesh)
+    if fsdp > 1:  # sliced gradients on a sharded model raise (ROADMAP item 10e)
+        spec = torch.load(root / f"{cases[0]}_case.pt", weights_only=False)
+        try:
+            train_case({**spec, "sliced": True}, data_group(mesh), mesh)
+        except NotImplementedError as e:
+            out["sliced_refused"] = str(e)
     out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hma_tpu"))
     (root / f"eval_rank{dist.process_index()}.json").write_text(json.dumps(out))
     torch.distributed.barrier()
