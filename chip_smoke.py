@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-four)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-five)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -344,6 +344,23 @@ Phases, each failing the run on any error:
      each rank's shard of every grad within DP_TOL, each rank half the
      state's bytes; (c) beside (b), `train_multi --fsdp 1` in a 1-rank NCCL
      group resumed from (a)'s checkpoint for 4 steps.
+25. tp (the heads and MLP features split over tensor-parallel ranks,
+     `parallel.tensor_parallel`), gloo ranks sharing the card (this script
+     started with --tp_worker), each against one process on the same
+     weights, batch and draws: (a) tp 2, the d256 card at full width (8
+     heads, 4 a rank, D 32) and TP_LAYERS["d256"] layers, one bf16 training
+     step at B 8 (K1'-K4' at H 4; loss and each rank's grads against the
+     matching dealt columns of one process's within TP_BF16_TOL), then the
+     fp32 cached rollout greedy for 2 frames after 10 prompt frames (tokens
+     equal in at least TP_TOKEN_SHARE); (b) tp 2, the d512 STMAR card at
+     full width and TP_LAYERS["d512"] layers, the resident layout's bf16
+     step (K5' at H 4) likewise, then the fp32 cached MAR rollout of one
+     frame at B 2 with handed-in draws, K6' on the diffusion head gathered
+     whole (latents within TP_FP32_TOL of max); (c) (fsdp 2, tp 2), four
+     ranks, phase 23 (b)'s 2-layer fp32 d256 case, one full-grad step: loss
+     and each rank's shard of every grad within DP_TOL. Each rank's launch
+     counts, peak memory and step time beside one process's; phase 3's H 4
+     records take (a)'s and (b)'s launches.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -820,11 +837,14 @@ def kernel_phase():
                ((8, 128, 8, 16), False, True), ((8, 128, 8, 32), False, True),
                ((96, 320, 8, 16), False, True), ((96, 320, 8, 61), False, True),
                ((96, 128, 8, 16), False, True), ((96, 128, 8, 32), False, True),
-               ((3, 77, 4, 64), True, False)] + [(s, c, False) for s, c in SPATIAL_EDGES]
+               ((3, 77, 4, 64), True, False),
+               ((96, 320, 4, 32), False, True)]  # phase 25's tp 2 d256 step: H 4 a rank
+    spatial += [(s, c, False) for s, c in SPATIAL_EDGES]
     temporal = [((2560, 12, 8, 32), True), ((1024, 12, 8, 64), True),
                 ((2560, 12, 8, 16), True), ((2560, 12, 8, 61), True),
                 ((1024, 12, 8, 16), True), ((1024, 12, 8, 32), True),
-                ((1000, 5, 3, 64), False)] + [(s, False) for s in TEMPORAL_EDGES]
+                ((1000, 5, 3, 64), False), ((2560, 12, 4, 32), True)]
+    temporal += [(s, False) for s in TEMPORAL_EDGES]
     cases = ([("K1'", s, c, main) for s, c, main in spatial]
              + [("K3'", s, True, main) for s, main in temporal])
     for name, shape, causal, main in cases:
@@ -859,12 +879,12 @@ def kernel_phase():
     bwd_cases = [("K2'", (96, 320, 8, 32), False, True), ("K2'", (96, 128, 8, 64), False, True),
                  ("K2'", (96, 320, 8, 16), False, True), ("K2'", (96, 320, 8, 61), False, True),
                  ("K2'", (96, 128, 8, 16), False, True), ("K2'", (96, 128, 8, 32), False, True),
-                 ("K2'", (3, 77, 4, 64), True, False),
+                 ("K2'", (3, 77, 4, 64), True, False), ("K2'", (96, 320, 4, 32), False, True),
                  *(("K2'", s, c, False) for s, c in SPATIAL_EDGES),
                  ("K4'", (2560, 12, 8, 32), True, True), ("K4'", (1024, 12, 8, 64), True, True),
                  ("K4'", (2560, 12, 8, 16), True, True), ("K4'", (2560, 12, 8, 61), True, True),
                  ("K4'", (1024, 12, 8, 16), True, True), ("K4'", (1024, 12, 8, 32), True, True),
-                 ("K4'", (1000, 5, 3, 64), True, False),
+                 ("K4'", (1000, 5, 3, 64), True, False), ("K4'", (2560, 12, 4, 32), True, True),
                  *(("K4'", s, True, False) for s in TEMPORAL_EDGES)]
     for name, shape, causal, main in bwd_cases:
         lead, H, D = shape[:2], shape[2], shape[3]
@@ -1042,7 +1062,8 @@ def resident_kernel_phase():
         return tuple(from_sites(g, B, S) for g in grads)
 
     records = []
-    for shape, main in (((8, 12, 128, 8, 64), True), ((8, 12, 320, 8, 61), True),
+    for shape, main in (((8, 12, 128, 8, 64), True), ((8, 12, 128, 4, 64), True),
+                        ((8, 12, 320, 8, 61), True),
                         ((8, 12, 128, 8, 16), True), ((8, 12, 128, 8, 32), True),
                         ((3, 5, 7, 3, 32), False), *((s, False) for s in RESIDENT_EDGES)):
         B, T, S, H, D = shape
@@ -5089,7 +5110,7 @@ def stacked_grad_bytes(model, mask) -> tuple:
             sum(params[n][0].numel() for n in names) * 4)
 
 
-SLICED_STEPS = 4  # timed steps of each kind a card in phase 23 (a)
+SLICED_STEPS = 3  # timed steps of each kind a card in phase 23 (a)
 PROFILE_PAIRS = 12  # --sliced_profile: full/sliced pairs of the d512 fp32-moment step
 
 
@@ -5614,7 +5635,7 @@ def sliced_dp_phase(records):
 # ------------------------------------------------------------------ phase 24
 
 FSDP_TOL = 1e-6  # (a) 2-layer fp32 cards: FSDP2 against unwrapped, max|d| / max|x| a tensor
-FSDP_STEPS = 4  # (a) timed steps of each kind after one warm-up, full-width cards
+FSDP_STEPS = 3  # (a) timed steps of each kind after one warm-up, full-width cards
 
 
 def one_rank_mesh():
@@ -5966,16 +5987,331 @@ def fsdp_phase(records):
     torch.distributed.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: tensor parallelism (tp) on gloo ranks sharing the card
+
+TP_LAYERS = {"d256": 4, "d512": 2}  # (a), (b): the full-width cards cut to this depth
+TP_BF16_TOL = 5e-2  # (a), (b) bf16 steps: loss relative, grads max|dg| / max|g| a tensor
+TP_FP32_TOL = 1e-3  # (b) fp32 MAR rollout: max |d latent| / max |latent|
+TP_TOKEN_SHARE = 0.99  # (a) fp32 greedy rollout: least share of tokens equal to one process's
+TP_MAR_STEPS = 2  # (b) MaskGIT steps of the MAR rollout's one frame
+
+
+def tp_model(case, dtype, state):
+    """(a)'s d256 or (b)'s d512 STMAR card at TP_LAYERS, in `dtype`, with
+    `state`'s weights; (b) in the resident layout."""
+    import torch
+
+    from hma_tpu_torch.models.st_mar import STMAR
+    from hma_tpu_torch.models.st_mask_git import STMaskGIT
+
+    if case == "d256":
+        cfg = flagship_config(40)
+        cfg.num_layers = TP_LAYERS[case]
+        model = STMaskGIT(cfg, dtype=dtype, device="cuda", remat=True)
+    else:
+        cfg = mar_flagship_config(40)
+        cfg.num_layers = TP_LAYERS[case]
+        model = STMAR(cfg, dtype=dtype, device="cuda", remat=True, temporal_layout="resident")
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def write_tp_cases(tmp) -> None:
+    """(a)'s and (b)'s cases, written once for every process: seeded weights
+    (the d512 heads and zero-init tokens woken by noise), the step's batch
+    (B 8, domain 5), the rollouts' prompts and the MAR rollout's draws."""
+    import torch
+
+    from hma_tpu_torch.rollout.mar import mar_subset_schedule
+
+    out = {}
+    for case, seed in (("d256", 5), ("d512", 6)):
+        model = tp_model(case, torch.float32, None)
+        model.reset_parameters(torch.Generator("cuda").manual_seed(seed))
+        cfg = model.config
+        with torch.no_grad():
+            g = torch.Generator("cuda").manual_seed(seed + 1)
+            for p in model.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
+        batch = (train_batch if case == "d256" else mar_batch)(cfg, 8, "cpu")
+        batch["domain_id"] = 5
+        if case == "d256":
+            roll = {"tokens": batch["labels"].clone(),
+                    "actions": batch["action_ids"].clone()}
+        else:
+            B, S, C = 2, model.seq_len, model.patch_dim
+            _, counts = mar_subset_schedule(S, TP_MAR_STEPS)
+            rows, K = B * max(counts), int(cfg.num_sampling_steps)
+            g = torch.Generator().manual_seed(7)
+            roll = {"latents": batch["input_ids"][:B].clone(),
+                    "actions": batch["action_ids"][:B].clone(),
+                    "draws": {"orders": torch.stack([torch.randperm(S, generator=g)
+                                                     for _ in range(B)])[None],
+                              "noise": torch.randn(1, TP_MAR_STEPS, rows, C, generator=g),
+                              "zs": torch.randn(1, TP_MAR_STEPS, K, rows, C, generator=g)}}
+        out[case] = {"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                     "batch": batch, "rollout": roll}
+        del model
+    torch.save(out, Path(tmp) / "tp_cases.pt")
+    torch.cuda.empty_cache()
+
+
+def tp_run(case, spec, mesh=None):
+    """Two bf16 full-grad steps of the domain-sliced AdamW on (a)'s or (b)'s
+    model (split over `mesh`'s tp axis where given): the first's loss and
+    grads are compared, the second is timed, its launches counted from just
+    before to just after and its peak memory read (less what the process
+    held before the model was built); then the fp32 cached
+    rollout. ({"loss", "grads": {name: the local grad}, "secs", "peak",
+    "bytes", "counts", "rollout", "rollout_counts", "cache_heads",
+    "parts"}."""
+    import gc
+
+    import torch
+
+    from hma_tpu_torch.parallel.mesh import shard_model
+    from hma_tpu_torch.rollout.mar import generate_latents
+    from hma_tpu_torch.rollout.maskgit import generate_tokens
+    from hma_tpu_torch.train.step import make_domain_sliced_optimizer, make_train_step
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    gc.collect()  # the last case's optimizer and model (a spy makes a cycle)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()  # what the process held already
+    model = tp_model(case, torch.bfloat16, spec["state"])
+    mask = stacked_param_mask(model, model.config)
+    if mesh is not None:
+        shard_model(model, mesh)
+    tx = make_domain_sliced_optimizer(model, DP_LR, stacked_mask=mask,
+                                      num_domains=model.config.num_domains)
+    seen = {}
+    update = tx.step
+
+    def spy(params, grads, d, ok, noise=None):
+        seen.update({n: g.detach().float().cpu().clone() for n, g in grads.items()})
+        return update(params, grads, d, ok, noise)
+
+    tx.step = spy
+    step = make_train_step(model, tx, continuous=case == "d512")
+    batch = {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in spec["batch"].items()}
+    loss = step(batch)["loss"].item()  # the step compared; the next one timed
+    first = dict(seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    step(batch)["loss"].item()
+    secs = time.perf_counter() - t0
+    seen = first
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out = {"loss": loss, "grads": seen, "secs": secs, "counts": read_counts(),
+           "peak": torch.cuda.max_memory_allocated() - before,
+           "bytes": (nbytes(model.parameters()), nbytes([*tx.m.values(), *tx.v.values()])),
+           "parts": {n: tuple(p) for n, p in getattr(model, "tp_parts", {}).items()}}
+    del model, tx, step, spy, update
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = tp_model(case, torch.float32, spec["state"]).eval()
+    if mesh is not None:
+        shard_model(model, mesh)
+    roll = spec["rollout"]
+    g = torch.Generator("cuda").manual_seed(0)
+    reset_counts()
+    with torch.no_grad():
+        if case == "d256":
+            T = model.config.T
+            got = generate_tokens(model, roll["tokens"].cuda(), T - 2, roll["actions"].cuda(),
+                                  5, g, maskgit_steps=2, temperature=0.0)[:, T - 2:]
+        else:
+            got = generate_latents(model, roll["latents"].cuda(), model.config.T - 1,
+                                   roll["actions"].cuda(), 5, g,
+                                   maskgit_steps=TP_MAR_STEPS,
+                                   draws={k: v.cuda() for k, v in roll["draws"].items()})[:, -1]
+    torch.cuda.synchronize()
+    out.update(rollout=got.cpu(), rollout_counts=read_counts(),
+               cache_heads=model.init_cache(1)[0].shape[-2])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(spec: str) -> int:
+    """A rank of phase 25: a gloo group over the card's CUDA tensors and its
+    (1, fsdp, tp, 1) mesh; with fsdp 1, (a) and (b) (`tp_run`), with fsdp 2,
+    (c): phase 23 (b)'s case split over tp and sharded by FSDP2, one step on
+    its data index's rows. Saves what it saw."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from hma_tpu_torch.parallel import distributed
+    from hma_tpu_torch.parallel.mesh import AXES, shard_model, use_mesh
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    rank, world, port, tmp, fsdp = json.loads(spec)
+    torch.cuda.set_device(0)  # every rank shares the one card
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    mesh = use_mesh(init_device_mesh("cuda", (1, fsdp, world // fsdp, 1),
+                                     mesh_dim_names=AXES))
+    if fsdp == 1:
+        cases = torch.load(Path(tmp) / "tp_cases.pt", weights_only=False)
+        out = {case: tp_run(case, cases[case], mesh) for case in ("d256", "d512")}
+    else:
+        model, batch = load_dp_case(tmp)
+        mask = stacked_param_mask(model, model.config)
+        shard_model(model, mesh)
+        reset_counts()
+        loss, grads, _ = fsdp_dp_step(model, batch, mask, distributed.data_group())
+        out = {"loss": loss, "grads": grads, "counts": read_counts(),
+               "parts": {n: tuple(p) for n, p in model.tp_parts.items()}}
+    torch.save(out, Path(tmp) / f"tp_rank{rank}_{world}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_tp_workers(tmp, world, fsdp):
+    port = free_port()
+    return [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp_worker",
+                              json.dumps([r, world, port, str(tmp), fsdp])],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def wait_workers(procs, what, timeout=600):
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:  # every process this phase started ends with it
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"{what} rank {r} failed (exit {p.returncode}):\n"
+                f"{out[-12000:]}")
+
+
+def worst_part(grads, want, parts, rank, world, slices=None):
+    """(max over tensors of max|dg| / max|g|, where) of a rank's grads
+    against one process's `want`, each taken to the rank's dealt columns
+    (`parts`) and, with `slices` {name: ((start, stop), ...)}, its shard."""
+    from hma_tpu_torch.parallel.tensor_parallel import Part, take
+
+    worst, where = 0.0, ""
+    for n, w in want.items():
+        scale = w.abs().max().item()
+        if n in parts:
+            w = take(w, Part(*parts[n]), rank, world)
+        if slices is not None:
+            w = w[tuple(slice(a, b) for a, b in slices[n])]
+        got = grads[n]
+        err = (got - w).abs().max().item() if got.numel() else 0.0
+        ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        if ratio >= worst:
+            worst, where = ratio, n
+    return worst, where
+
+
+def tp_phase(records):
+    """Phase 25: (a) and (b) on two tp ranks, (c) on four (fsdp 2, tp 2)
+    ranks, each against one process."""
+    import torch
+
+    from hma_tpu_torch.train.trainer import stacked_param_mask
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_tp_cases(tmp)
+        write_dp_case(tmp)
+        cases = torch.load(tmp / "tp_cases.pt", weights_only=False)
+        one = {case: tp_run(case, cases[case]) for case in ("d256", "d512")}
+        t0 = time.perf_counter()
+        wait_workers(start_tp_workers(tmp, 2, 1), "tp 2")
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"tp_rank{r}_2.pt", weights_only=False) for r in range(2)]
+        for case, label in (("d256", f"d256 at {TP_LAYERS['d256']} layers, K1'-K4'"),
+                            ("d512", f"d512 STMAR at {TP_LAYERS['d512']} layers, resident, "
+                                     "K5'")):
+            want = one[case]
+            for r, got in enumerate(g[case] for g in ranks):
+                loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+                worst, where = worst_part(got["grads"], want["grads"], got["parts"], r, 2)
+                print(f"  tp 2 rank {r}, {label}, B 8, bf16 step: loss {got['loss']:.6f} "
+                      f"against 1 process {want['loss']:.6f} (rel err {loss_err:.3e}); "
+                      f"{len(got['grads'])} grads ({len(got['parts'])} split), worst "
+                      f"max|dg|/max|g| {worst:.3e} at {where} (tol {TP_BF16_TOL}); step "
+                      f"{got['secs']:.3f} s (1 process {want['secs']:.3f} s); parameter / "
+                      f"moment bytes {got['bytes']} (1 process {want['bytes']}); peak memory "
+                      f"{got['peak'] / 1e9:.2f} GB (1 process {want['peak'] / 1e9:.2f} GB); "
+                      f"launches {got['counts']} (1 process {want['counts']}); cache heads "
+                      f"{got['cache_heads']}", flush=True)
+                require(loss_err <= TP_BF16_TOL, f"tp 2 {case}: loss differs")
+                require(worst <= TP_BF16_TOL, f"tp 2 {case}: grad {where} differs: {worst:.3e}")
+                require(got["counts"] == want["counts"], f"tp 2 {case}: launches differ")
+                require(got["cache_heads"] == 4, f"tp 2 {case}: caches of {got['cache_heads']} heads")
+                if case == "d256":
+                    share = (got["rollout"] == want["rollout"]).float().mean().item()
+                    print(f"  tp 2 rank {r}, d256 fp32 cached rollout, B 8, 2 greedy frames "
+                          f"after 10: tokens equal to 1 process's {share:.5f} (least "
+                          f"{TP_TOKEN_SHARE}); launches {got['rollout_counts']}", flush=True)
+                    require(share >= TP_TOKEN_SHARE, "tp 2 d256 rollout tokens differ")
+                    require(got["rollout_counts"]["K1'"] > 0, "tp 2 rollout missed K1'")
+                else:
+                    err = ((got["rollout"] - want["rollout"]).abs().max()
+                           / want["rollout"].abs().max()).item()
+                    print(f"  tp 2 rank {r}, d512 STMAR fp32 cached MAR rollout, B 2, one "
+                          f"frame, {TP_MAR_STEPS} MaskGIT steps, handed-in draws, K6' on the "
+                          f"gathered head: max|d|/max|x| {err:.3e} (tol {TP_FP32_TOL}); "
+                          f"launches {got['rollout_counts']}", flush=True)
+                    require(err <= TP_FP32_TOL, "tp 2 MAR rollout differs")
+                    require(got["rollout_counts"]["K6'"] > 0 and got["rollout_counts"]["K1'"] > 0,
+                            "tp 2 MAR rollout missed K1' or K6'")
+        print(f"  tp 2: both ranks, (a) and (b), {secs:.1f} s", flush=True)
+        c = ranks[0]["d256"]["counts"]
+        set_launches(records, {("K1'", (96, 320, 4, 32)): c["K1'"],
+                               ("K2'", (96, 320, 4, 32)): c["K2'"],
+                               ("K3'", (2560, 12, 4, 32)): c["K3'"],
+                               ("K4'", (2560, 12, 4, 32)): c["K4'"]})
+        c = ranks[0]["d512"]["counts"]
+        set_launches(records, {("K5' fwd", (8, 12, 128, 4, 64)): c["K5' fwd"],
+                               ("K5' bwd", (8, 12, 128, 4, 64)): c["K5' bwd"]})
+        del one, ranks
+
+        model, batch = load_dp_case(tmp)
+        loss, grads, _ = fsdp_dp_step(model, batch, stacked_param_mask(model, model.config))
+        grads = {n: g for n, (g, _) in grads.items()}
+        del model
+        t0 = time.perf_counter()
+        wait_workers(start_tp_workers(tmp, 4, 2), "(fsdp 2, tp 2)")
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"tp_rank{r}_4.pt", weights_only=False) for r in range(4)]
+        for r, got in enumerate(ranks):
+            loss_err = abs(got["loss"] - loss) / abs(loss)
+            worst, where = worst_part({n: g for n, (g, _) in got["grads"].items()}, grads,
+                                      got["parts"], r % 2, 2,
+                                      {n: i for n, (_, i) in got["grads"].items()})
+            print(f"  (fsdp 2, tp 2) rank {r}, 2-layer d256, fp32, B 8 (4 a data index): "
+                  f"loss {got['loss']:.6f} against 1 process {loss:.6f} (rel err "
+                  f"{loss_err:.3e}); worst max|dg|/max|g| {worst:.3e} at {where} (tol "
+                  f"{DP_TOL}); launches {got['counts']}", flush=True)
+            require(loss_err <= DP_TOL, "(fsdp 2, tp 2): loss differs")
+            require(worst <= DP_TOL, f"(fsdp 2, tp 2): grad {where} differs: {worst:.3e}")
+            require(all(got["counts"][k] for k in TRAINING_KERNELS),
+                    "(fsdp 2, tp 2): a rank missed a kernel")
+        print(f"  (fsdp 2, tp 2): four ranks {secs:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 25)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 26)),
                    help="comma-separated phases to run (1 and 2 always run)")
     p.add_argument("--dp_worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--fsdp_worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tp_worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--sliced_profile", action="store_true",
                    help="only the d512 STMAR fp32-moment step, full against sliced "
                         f"grads in {PROFILE_PAIRS} pairs, with a host profile")
@@ -5990,6 +6326,8 @@ def main(argv=None) -> int:
         return dp_worker(args.dp_worker)
     if args.fsdp_worker:  # a rank of phase 24 (b)
         return fsdp_worker(args.fsdp_worker)
+    if args.tp_worker:  # a rank of phase 25
+        return tp_worker(args.tp_worker)
     if args.sliced_profile:
         return sliced_profile(args.profile_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6056,7 +6394,11 @@ def main(argv=None) -> int:
                   "both moment dtypes, d256; 2-layer exactness; K6' on the gathered head; "
                   "the gathered checkpoint); fsdp 2 on 2 gloo ranks against 1 process; "
                   "train_multi --fsdp 1 resumed from the FSDP2 checkpoint",
-              lambda: fsdp_phase(records))]
+              lambda: fsdp_phase(records)),
+             (25, "tp: tp 2 on 2 gloo ranks (d256 step at H 4 and its cached rollout; d512 "
+                  "STMAR resident step, K5' at H 4, and its cached MAR rollout, K6' on the "
+                  "gathered head); (fsdp 2, tp 2) on 4 ranks; each against 1 process",
+              lambda: tp_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()
@@ -6064,7 +6406,7 @@ def main(argv=None) -> int:
             run()
             print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if {3, 4, 6, 9, 11, 14, 15, 18} <= phases:  # every kernel of the main paths was launched
+    if {3, 4, 6, 9, 11, 14, 15, 18, 25} <= phases:  # every kernel of the main paths was launched
         for r in records:
             require(r["launches"], f"{r['name']} {r['shape']} never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -16,16 +16,25 @@ stacked on a leading layer axis). Names map one to one:
     `action_diff_loss/net/*` among them. The plain head's
     `diffloss/net/{time_embed/fc1, res_<i>_adaLN, ...}` are Dense and
     LayerNorm leaves like any other.
+
+With `tp=(rank, size)` the state is that rank's tensor-parallel part:
+every leaf `hma_tpu`'s param_spec splits over "tp" (`mesh.tp_dim`) is cut
+to the rank's columns, dealt by head or feature as
+`parallel.tensor_parallel.split_model` holds them, so it loads into a model
+split at that size.
 """
 
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import numpy as np
 import torch
 
 from hma_tpu_torch.config import GenieConfig
+from hma_tpu_torch.parallel.mesh import tp_dim
+from hma_tpu_torch.parallel.tensor_parallel import CHUNKS, Part, take
 
 _INDEXED = re.compile(r"^(layers|factored_embeds)_(\d+)$")
 
@@ -53,8 +62,9 @@ def _flatten(tree: dict, prefix=()):
             yield prefix + (k,), v
 
 
-def params_from_jax(tree: dict, cfg: GenieConfig) -> dict:
-    """hma_tpu param tree (numpy or jax arrays) -> torch state_dict (fp32)."""
+def params_from_jax(tree: dict, cfg: GenieConfig, tp: Optional[tuple] = None) -> dict:
+    """hma_tpu param tree (numpy or jax arrays) -> torch state_dict (fp32);
+    with `tp` (rank, size), the rank's tensor-parallel part of it."""
     if "params" in tree:
         tree = tree["params"]
     if "layers_scan" in tree.get("decoder", {}):
@@ -64,13 +74,19 @@ def params_from_jax(tree: dict, cfg: GenieConfig) -> dict:
     for path, value in _flatten(tree):
         arr = np.array(value, dtype=np.float32)
         *mods, leaf = path
+        parent = mods[-1] if mods else ""
+        dim = None if tp is None else tp_dim(parent, leaf, arr.shape, tp[1])
         mods = [".".join(m.groups()) if (m := _INDEXED.match(p)) else p
                 for p in mods]
         if leaf == "kernel" and arr.ndim == 2:
             leaf, arr = "weight", arr.T
+            dim = None if dim is None else 1 - dim
         elif leaf == "scale" and arr.ndim == 1:
             leaf = "weight"
         elif leaf == "embedding":
             leaf = "weight"
-        state[".".join([*mods, leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if dim is not None:
+            t = take(t, Part(dim, CHUNKS.get(parent, 1), tuple(t.shape)), *tp)
+        state[".".join([*mods, leaf])] = t
     return state

@@ -24,13 +24,15 @@ none). The model and the codec compute in bf16 on the card and in fp32 on
 the CPU; the pixel metrics run on the same device. Data-parallel across
 processes when launched with torchrun (`parallel.sharded_eval`): each
 evaluates its rows of every global batch (`--batch_size`, rounded down to
-a multiple of the world size) with its rows of the global batch's draws
-(`--seed`), so that N processes give what one gives; the token metrics are
+a multiple of the data degree dp * fsdp) with its rows of the global
+batch's draws (`--seed`), so that N processes give what one gives; the token metrics are
 the global batch's, the pixel metrics and gen_time the mean over the
 processes, and process 0 writes. With `--fsdp` above 1 the model's
-parameters are sharded over the processes by FSDP2, by the training rules.
-Not ported yet, and raising when asked for: `--use_wandb` (ROADMAP.md
-Queue A, item 11) and `--tp/--sp` > 1 (item 10c).
+parameters are sharded over the processes by FSDP2, by the training rules;
+with `--tp` above 1 its heads and MLP features are split over the tp ranks,
+which share their rows and draws (the world is dp * fsdp * tp processes,
+the batch split over dp * fsdp). Not ported yet, and raising when asked
+for: `--use_wandb` (ROADMAP.md Queue A, item 11) and `--sp` > 1 (item 10c).
 """
 
 from __future__ import annotations
@@ -187,13 +189,13 @@ def main(argv=None):
                                       "psnr_copy_prev", "psnr_vs_copy")}
     # each process draws its rows of the global batch's draws: N processes = 1
     generator = dist.rank_rows(torch.Generator(device).manual_seed(args.seed),
-                               dist.world_group())
+                               dist.data_group())
     total, B_full = (round_batch(n)
                      for n in (min(args.max_examples, len(dataset)), args.batch_size))
     if total <= 0 or B_full <= 0:
         raise ValueError(f"min(--max_examples {args.max_examples}, len(dataset) "
                          f"{len(dataset)}) or --batch_size {args.batch_size} rounds to "
-                         f"0 over {dist.process_count()} processes: nothing to evaluate")
+                         f"0 over {dist.data_count()} data-parallel ranks: nothing to evaluate")
     n_done = 0
     while n_done < total:
         B = min(B_full, total - n_done)

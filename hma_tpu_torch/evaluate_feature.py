@@ -20,13 +20,15 @@ One extra flag: `--device` (default: the CUDA card; raises if there is
 none). bf16 on the card, fp32 on the CPU, the metric backbones fp32 on
 both. Data-parallel across processes when launched with torchrun: each
 evaluates its rows of every global batch (`--batch_size`, rounded down to a
-multiple of the world size) with its rows of the global batch's draws, so
+multiple of the data degree dp * fsdp) with its rows of the global batch's draws, so
 that N processes give what one gives; the latent MSEs are the global
 batch's, the FID/FVD pass gathers every process's rows, gen_time is the
 mean over the processes, and process 0 writes. With `--fsdp` above 1 the
 model's parameters are sharded over the processes by FSDP2, by the
-training rules. `--use_wandb` (ROADMAP.md Queue A, item 11) and
-`--tp/--sp` > 1 (item 10c) raise.
+training rules; with `--tp` above 1 its heads and MLP features are split
+over the tp ranks, which share their rows and draws (the diffusion head is
+gathered whole on each). `--use_wandb` (ROADMAP.md Queue A, item 11) and
+`--sp` > 1 (item 10c) raise.
 """
 
 from __future__ import annotations
@@ -162,14 +164,14 @@ def main(argv=None):
     frame_sum = np.zeros(T - t_first)
     # each process draws its rows of the global batch's draws: N processes = 1
     seeded = lambda seed: dist.rank_rows(torch.Generator(device).manual_seed(seed),
-                                         dist.world_group())
+                                         dist.data_group())
     generator = seeded(args.seed)
     total, B_full = (round_batch(n)
                      for n in (min(args.max_examples, len(dataset)), args.batch_size))
     if total <= 0 or B_full <= 0:
         raise ValueError(f"min(--max_examples {args.max_examples}, len(dataset) "
                          f"{len(dataset)}) or --batch_size {args.batch_size} rounds to "
-                         f"0 over {dist.process_count()} processes: nothing to evaluate")
+                         f"0 over {dist.data_count()} data-parallel ranks: nothing to evaluate")
     n_done = 0
     while n_done < total:
         B = min(B_full, total - n_done)

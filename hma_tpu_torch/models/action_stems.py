@@ -6,6 +6,12 @@ and an integer `domain_id` selects the row, so one set of modules serves
 all embodiments. Action vectors are zero-padded to `max_d_action`.
 The cross-attention and the readout are plain PyTorch products, as their
 JAX counterparts are XLA einsums.
+
+Under tensor parallelism (`parallel.tensor_parallel.split_model`) a
+`DomainDense` runs as `attention.Dense` does ("col", "row", "whole"); the
+stem gathers its features around its LayerNorm, the modulation its hidden
+features between `ada_fc1` and `ada_fc2` and takes the rank's shift and
+scale, and the cross-attention runs on the rank's 8 / tp heads.
 """
 
 from __future__ import annotations
@@ -17,6 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from hma_tpu_torch.models.attention import split_linear
+from hma_tpu_torch.parallel import tensor_parallel as tpar
 
 
 def build_action_stat_tables(d_actions: Sequence[int],
@@ -82,6 +91,7 @@ class DomainDense(nn.Module):
                                                out_features, device=device))
         self.bias = (nn.Parameter(torch.zeros(num_domains, out_features, device=device))
                      if use_bias else None)
+        self.tp = self.tp_mode = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -93,10 +103,19 @@ class DomainDense(nn.Module):
         self.kernel.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor, domain_id: int) -> torch.Tensor:
-        y = x.to(self.dtype) @ take_domain(self.kernel, domain_id).to(self.dtype)
-        if self.bias is None:
-            return y
-        return y + take_domain(self.bias, domain_id).to(self.dtype)
+        kernel = self.kernel
+        if self.tp_mode == "whole":
+            kernel = tpar.gather(kernel, self.tp, self.tp_part.dim)
+        w = take_domain(kernel, domain_id).to(self.dtype)
+        b = None if self.bias is None else take_domain(self.bias, domain_id).to(self.dtype)
+        if self.tp_mode in ("col", "row"):
+            return split_linear(x.to(self.dtype), w, b, self, _matmul, w.shape[0])
+        return _matmul(x.to(self.dtype), w, b)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    y = x @ w
+    return y if b is None else y + b
 
 
 class DomainLayerNorm(nn.Module):
@@ -126,9 +145,16 @@ class ActionStemMLP(nn.Module):
         self.fc1 = DomainDense(num_domains, max_d_action, d_model, **kw)
         self.ln = DomainLayerNorm(num_domains, d_model, **kw)
         self.fc2 = DomainDense(num_domains, d_model, d_model, **kw)
+        self.tp = None
+
+    def enable_tp(self, tp) -> None:
+        """fc1 column-split, its features gathered for the LayerNorm, fc2
+        row-split."""
+        if tpar.split_mode(self.fc1, self.fc2):
+            self.tp = tp
 
     def forward(self, actions: torch.Tensor, domain_id: int) -> torch.Tensor:
-        h = self.ln(self.fc1(actions, domain_id), domain_id)
+        h = self.ln(tpar.gather(self.fc1(actions, domain_id), self.tp), domain_id)
         return self.fc2(F.relu(h), domain_id)
 
 
@@ -145,13 +171,21 @@ class DomainModulate(nn.Module):
         self.ada_fc1 = DomainDense(num_domains, d_model, d_model, **kw)
         self.ada_fc2 = DomainDense(num_domains, d_model, 2 * d_model, **kw)
         self.linear_out = DomainDense(num_domains, d_model, d_model, **kw)
+        self.tp = None
+
+    def enable_tp(self, tp) -> None:
+        """ada_fc1 column-split and gathered, ada_fc2 column-split by
+        [shift | scale] (the rank's shift and scale), linear_out row-split
+        on the rank's modulated features."""
+        if tpar.split_mode(self.ada_fc1, self.ada_fc2, self.linear_out):
+            self.tp = tp
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 domain_id: int) -> torch.Tensor:
         """x: (..., d_model); cond broadcastable to x's leading dims."""
-        h = F.silu(self.ada_fc1(cond, domain_id))
+        h = tpar.gather(F.silu(self.ada_fc1(cond, domain_id)), self.tp)
         shift, scale = self.ada_fc2(h, domain_id).chunk(2, dim=-1)
-        normed = _var_norm(x, 1e-6).to(self.dtype)
+        normed = tpar.scatter(_var_norm(x, 1e-6).to(self.dtype), self.tp)
         return self.linear_out(normed * (1 + scale) + shift, domain_id)
 
 
@@ -187,10 +221,26 @@ class DomainCrossAttention(nn.Module):
         self.qk_ln_scale = nn.Parameter(torch.ones(num_domains, self.head_dim, device=device))
         self.qk_ln_bias = nn.Parameter(torch.zeros(num_domains, self.head_dim, device=device))
         self.proj = DomainDense(num_domains, d_model, d_model, dtype=dtype, device=device)
+        self.tp = None
+
+    def enable_tp(self, tp) -> None:
+        """to_q/to_k/to_v column-split by head (their outputs are (H, D), so
+        a rank's contiguous part is whole heads), proj row-split: the rank
+        attends with its H / tp heads; the compat="reference" head-axis
+        softmax gathers every head and proj takes the rank's part."""
+        if not tpar.split_mode(self.to_q, self.to_k, self.to_v, self.proj):
+            return
+        if self.num_heads % tp.size:
+            raise NotImplementedError(f"tp {tp.size} does not divide {self.num_heads} heads")
+        self.tp = tp
+        if self.compat == "fixed":
+            self.num_heads //= tp.size
 
     def _ln(self, u: torch.Tensor, domain_id: int) -> torch.Tensor:
-        y = _var_norm(u, 1e-5) * take_domain(self.qk_ln_scale, domain_id)
-        return (y + take_domain(self.qk_ln_bias, domain_id)).to(self.dtype)
+        scale, bias = (tpar.copy(p, None if self.compat == "reference" else self.tp)
+                       for p in (self.qk_ln_scale, self.qk_ln_bias))
+        y = _var_norm(u, 1e-5) * take_domain(scale, domain_id)
+        return (y + take_domain(bias, domain_id)).to(self.dtype)
 
     def forward(self, q: torch.Tensor, kv: torch.Tensor, domain_id: int) -> torch.Tensor:
         H, D = self.num_heads, self.head_dim
@@ -199,9 +249,8 @@ class DomainCrossAttention(nn.Module):
             rows = (torch.arange(B, device=q.device)[:, None] * S
                     + torch.arange(S, device=q.device)[None, :]) % B
             kvp = kv[:, :T][rows]  # (B, S, T, C)
-            qh = self.to_q(q, domain_id).view(B, S, T, H, D)
-            kh = self.to_k(kvp, domain_id).view(B, S, T, H, D)
-            vh = self.to_v(kvp, domain_id).view(B, S, T, H, D)
+            qh, kh, vh = (tpar.gather(f(x, domain_id), self.tp).view(B, S, T, H, D)
+                          for f, x in ((self.to_q, q), (self.to_k, kvp), (self.to_v, kvp)))
             qh = self._ln(qh, domain_id) * self.scale
             kh = self._ln(kh, domain_id)
             logits = torch.einsum("bsthd,bstgd->bsthg", qh.float(), kh.float())
@@ -216,7 +265,7 @@ class DomainCrossAttention(nn.Module):
         vh = self.to_v(kv, domain_id).view(B, M, H, D)
         logits = torch.einsum("bnhd,bmhd->bhnm", qh.float(), kh.float())
         probs = torch.softmax(logits, -1).to(self.dtype)
-        out = torch.einsum("bhnm,bmhd->bnhd", probs, vh).reshape(B, N, C)
+        out = torch.einsum("bhnm,bmhd->bnhd", probs, vh).reshape(B, N, H * D)
         return self.proj(out, domain_id)
 
 

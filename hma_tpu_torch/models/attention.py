@@ -23,6 +23,14 @@
   counterpart is XLA einsums), scores in fp32, probs rounded to the
   compute dtype before p v.
 
+Under tensor parallelism (`parallel.tensor_parallel.split_model`) `Dense`
+runs its split as the rank's part ("col": the rank's output features,
+"row": a partial product over its input features, summed over the group,
+the bias added once after; "whole": the weight gathered) and
+`SelfAttention` runs on the rank's H / tp heads: `qkv` gives their q, k, v
+in (3, H / tp, D) order, K1'-K5' and the decode paths take them as they
+take all heads in one process, and `proj` is row-split.
+
 `CrossAttention` is not ported yet. `attn_drop` is not
 an argument: `hma_tpu`'s attention builds its dropout and never calls it, a
 quirk of the reference, so it is a no-op there.
@@ -41,21 +49,50 @@ from hma_tpu_torch.ops.temporal_attention import (
     FusedTemporalAttention,
     FusedTemporalResident,
 )
+from hma_tpu_torch.parallel import tensor_parallel as tpar
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # the decode paths' mask value
 
 
+def split_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], module,
+                 matmul, in_width: int) -> torch.Tensor:
+    """`matmul(x, w, b)` under `module`'s tp mode "col" or "row" (see
+    `Dense`): w is the rank's part (`in_width` input features), b (whole)
+    is sliced ("col") or added after the sum ("row"), and a "row" input of
+    whole width is sliced first."""
+    tp = module.tp
+    if module.tp_mode == "col":
+        b = None if b is None else tpar.copy(b, tp)[..., module.tp_index]
+        return matmul(tpar.copy(x, tp), w, b)
+    if x.shape[-1] != in_width:
+        x = tpar.scatter(x, tp)
+    y = tpar.reduce(matmul(x, w, None), tp)
+    return y if b is None else y + b
+
+
 class Dense(nn.Linear):
-    """nn.Linear whose fp32 parameters are cast to `dtype` at use."""
+    """nn.Linear whose fp32 parameters are cast to `dtype` at use.
+
+    Under tp (`tensor_parallel.split_model` sets `tp`, `tp_mode`, `tp_part`
+    and, for "col", `tp_index`), mode "col" holds the rank's output features
+    and takes the replicated input, "row" its input features and sums its
+    partial product over the group, "whole" a part that is gathered at use."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.bfloat16, device="cuda"):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.dtype = dtype
+        self.tp = self.tp_mode = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        w = self.weight
+        if self.tp_mode in (None, "whole"):
+            if self.tp_mode == "whole":
+                w = tpar.gather(w, self.tp, self.tp_part.dim)
+            return F.linear(x.to(self.dtype), w.to(self.dtype), b)
+        return split_linear(x.to(self.dtype), w.to(self.dtype), b, self, F.linear,
+                            w.shape[1])
 
 
 class LayerNorm(nn.Module):
@@ -66,12 +103,14 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.tp = None  # set where it normalises a tp rank's heads alone
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         mean = x.mean(-1, keepdim=True)
         var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        w, b = tpar.copy(self.weight, self.tp), tpar.copy(self.bias, self.tp)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * w) + b
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -112,6 +151,18 @@ class SelfAttention(nn.Module):
         self.proj = Dense(d_model, d_model, proj_bias, dtype, device)
         self.norm = LayerNorm(self.head_dim, device=device) if qk_norm else None
 
+    def enable_tp(self, tp) -> None:
+        """Run on this rank's H / tp heads (`tensor_parallel.split_model`
+        has split qkv by head and proj by input feature); the shared qk
+        LayerNorm's gradient is then summed over the group."""
+        if not tpar.split_mode(self.qkv, self.proj):
+            return
+        if self.num_heads % tp.size:
+            raise NotImplementedError(f"tp {tp.size} does not divide {self.num_heads} heads")
+        self.num_heads //= tp.size
+        if self.norm is not None:
+            self.norm.tp = tp
+
     def _qkv(self, x: torch.Tensor):
         B, N, _ = x.shape
         qkv = self.qkv(x).view(B, N, 3, self.num_heads, self.head_dim)
@@ -123,27 +174,27 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         """Full pass over x: (B, N, C); causal runs K3'/K4', otherwise K1'/K2'."""
-        B, N, C = x.shape
+        B, N, _ = x.shape
         q, k, v = self._qkv(x)
         if causal:
             out = FusedTemporalAttention.apply(q, k, v)
         else:
             out = FusedAttention.apply(q, k, v, False)
-        return self.proj(out.reshape(B, N, C))
+        return self.proj(out.reshape(B, N, -1))
 
     def temporal_resident(self, x_BTSC: torch.Tensor) -> torch.Tensor:
         """Causal attention over T at every (b, s) site of x: (B, T, S, C),
         without leaving that layout. q, k, v stay (B, T, S, H, D) views of
         the (B, T, S, 3, H, D) projection (q and k normalised first under
         qk_norm); K5''s out (B, T, S, H, D) feeds `proj` as (B, T, S, C)."""
-        B, T, S, C = x_BTSC.shape
+        B, T, S, _ = x_BTSC.shape
         qkv = self.qkv(x_BTSC).view(B, T, S, 3, self.num_heads, self.head_dim)
         q = k = None
         if self.norm is not None:
             q = self.norm(qkv[..., 0, :, :]).to(self.dtype)
             k = self.norm(qkv[..., 1, :, :]).to(self.dtype)
         out = FusedTemporalResident.apply(qkv, self.scale, q, k)
-        return self.proj(out.view(B, T, S, C))
+        return self.proj(out.view(B, T, S, -1))
 
     def decode_step(self, x_t: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, t: int):
@@ -189,7 +240,7 @@ class SelfAttention(nn.Module):
         slots <= j; scores and softmax in fp32, probs cast to the compute
         dtype before the p v product.
         """
-        N, F_, C = x.shape
+        N, F_, _ = x.shape
         q, k, v = self._qkv(x)  # (N, F, H, D)
         t_max = k_cache.shape[1]
         k_all = torch.cat([k_cache, k], 1)  # (N, T_max + F, H, D)
@@ -200,4 +251,4 @@ class SelfAttention(nn.Module):
         scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k_all.float())
         probs = torch.softmax(scores.masked_fill(~valid, NEG_INF), -1).to(self.dtype)
         out = torch.einsum("bhnm,bmhd->bnhd", probs, v_all.to(self.dtype))
-        return self.proj(out.reshape(N, F_, C)), k, v
+        return self.proj(out.reshape(N, F_, -1)), k, v

@@ -2,7 +2,10 @@
 (counterpart of hma_tpu/models/factorization.py).
 
 The 2**18-token MagVit2 vocabulary is factored into `num_factored_vocabs`
-base-`factored_vocab_size` digits (2 x 512 by default).
+base-`factored_vocab_size` digits (2 x 512 by default). Under tensor
+parallelism the tables hold the rank's features
+(`parallel.tensor_parallel.split_model`): each rank looks up its slice and
+the slices are gathered whole.
 """
 
 from __future__ import annotations
@@ -10,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from hma_tpu_torch.parallel import tensor_parallel as tpar
 
 
 def _powers(n: int, base: int, like: torch.Tensor) -> torch.Tensor:
@@ -58,6 +63,12 @@ class FactorizedEmbedding(nn.Module):
             for _ in range(num_factored_vocabs))
         self.mask_token_embed = nn.Parameter(
             torch.zeros(1, d_model, device=device))
+        self.tp = None
+
+    def enable_tp(self, tp) -> None:
+        """Look up the rank's feature slice of each table, then gather."""
+        if self.factored_embeds[0].weight.shape[-1] != self.mask_token_embed.shape[-1]:
+            self.tp = tp
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids: (...) int -> (..., d_model) in the compute dtype."""
@@ -69,5 +80,6 @@ class FactorizedEmbedding(nn.Module):
         for i, table in enumerate(self.factored_embeds):
             embeds = embeds + F.embedding(factored[..., i],
                                           table.weight.to(self.dtype))
+        embeds = tpar.gather(embeds, self.tp)
         return torch.where(is_mask[..., None],
                            self.mask_token_embed.to(self.dtype), embeds)

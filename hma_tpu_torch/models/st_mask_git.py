@@ -279,7 +279,9 @@ class STMaskGIT(nn.Module):
                   and cfg.num_domains > 0)
         tokens = concat or cfg.jointly_predict_actions
         S_tot = cfg.S + (cfg.action_token_size if tokens else 0)
-        shape = (cfg.num_layers, batch_size * S_tot, cfg.T, cfg.num_heads,
+        # the heads this rank attends with (H / tp under tensor parallelism)
+        heads = self.decoder.layers[0].temporal_attn.num_heads
+        shape = (cfg.num_layers, batch_size * S_tot, cfg.T, heads,
                  cfg.d_model // cfg.num_heads)
         device = self.pos_embed_TSC.device
         return (torch.zeros(shape, dtype=self.dtype, device=device),

@@ -28,6 +28,12 @@ are drawn from that seed inside the block, so remat's recompute draws the
 same ones), or the masks themselves. Every other forward, the rollouts'
 `frame_step` among them, is deterministic, as in `hma_tpu`.
 
+Under tensor parallelism (`parallel.tensor_parallel.split_model`) both
+attentions run on the rank's H / tp heads and the temporal KV caches hold
+them; the MLP's fc1 is column-split and fc2 row-split, and its hidden
+dropout mask is drawn at the whole hidden width (what one process draws)
+and sliced to the rank's features.
+
 With `qk_norm=True`, norm1/norm2 are Identity, a quirk kept from the
 reference: the only normalisation is the qk-LayerNorm inside attention.
 """
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from hma_tpu_torch.models.action_stems import DomainCrossAttention, DomainModulate
 from hma_tpu_torch.models.attention import Dense, LayerNorm, SelfAttention
+from hma_tpu_torch.parallel import tensor_parallel as tpar
 from hma_tpu_torch.parallel.distributed import RankRows, draw_rows, source
 
 
@@ -65,13 +72,21 @@ class Mlp(nn.Module):
     def __init__(self, d_model: int, mlp_ratio: float = 4.0, mlp_bias: bool = True,
                  mlp_drop: float = 0.0, dtype=torch.bfloat16, device="cuda"):
         super().__init__()
-        hidden = int(d_model * mlp_ratio)
+        self.hidden = int(d_model * mlp_ratio)
         self.mlp_drop = mlp_drop
-        self.fc1 = Dense(d_model, hidden, mlp_bias, dtype, device)
-        self.fc2 = Dense(hidden, d_model, mlp_bias, dtype, device)
+        self.fc1 = Dense(d_model, self.hidden, mlp_bias, dtype, device)
+        self.fc2 = Dense(self.hidden, d_model, mlp_bias, dtype, device)
+        self.tp = None
+
+    def enable_tp(self, tp) -> None:
+        """fc1 column-split, fc2 row-split: the rank's hidden features."""
+        if tpar.split_mode(self.fc1, self.fc2):
+            self.tp = tp
 
     def forward(self, x: torch.Tensor, dropout: BlockDropout = None) -> torch.Tensor:
-        """`dropout`: see `BlockDropout`; ignored when mlp_drop is 0."""
+        """`dropout`: see `BlockDropout`; ignored when mlp_drop is 0. The
+        hidden mask is the whole hidden width's (drawn or given), sliced to
+        the rank's features under tp."""
         h = F.gelu(self.fc1(x), approximate="none")
         if dropout is None or self.mlp_drop == 0.0:
             return self.fc2(h)
@@ -82,9 +97,12 @@ class Mlp(nn.Module):
                 g = dropout._replace(source=g)
             masks = [draw_rows(lambda m, g, s=shape: torch.rand(
                          (m, *s[1:]), generator=g, device=x.device), shape[0], g) < keep
-                     for shape in (h.shape, (*h.shape[:-1], self.fc2.out_features))]
+                     for shape in ((*h.shape[:-1], self.hidden),
+                                   (*h.shape[:-1], self.fc2.out_features))]
         else:
-            masks = dropout
+            masks = list(dropout)
+        if self.tp is not None and masks[0].shape[-1] == self.hidden:
+            masks[0] = tpar.rank_slice(masks[0], self.tp, masks[0].ndim - 1)
         return _dropout(self.fc2(_dropout(h, keep, masks[0])), keep, masks[1])
 
 

@@ -6,9 +6,12 @@ CPU), every process runs the same seeded sampler and loads its contiguous
 share of each global batch (`local_slice`) and its rows of the batch's
 random draws (`rank_rows`, `draw_rows`), and the train and eval steps sum
 their gradients, loss denominators and metrics over the group. The group
-is the mesh's data axes ("dp" and "fsdp" flattened, `mesh.data_group`):
-with tp and sp at 1 every process, so the data degree dp * fsdp is the
-process count and the helpers below hold for any (dp, fsdp) split.
+is the mesh's data axes ("dp" and "fsdp" flattened, `mesh.data_group`),
+and a process's share goes by its data index, not its process index: the
+ranks of one tp group (`mesh.use_mesh` registers tp * sp as the model-
+parallel factor) load the same rows and draw the same masks, dropout,
+diffusion noise and rollout samples, so their replicated activations stay
+equal. With tp and sp at 1 the data index is the process index.
 `hma_tpu` has one process a host driving every local device; its helpers'
 names and arithmetic are kept. With no launcher environment everything is
 the single-process identity.
@@ -29,6 +32,20 @@ BUCKET_ELEMS = 1 << 25  # fp32 elements summed by one all_reduce of `all_reduce_
 AUTO = ("HMA_TPU_COORDINATOR=auto asks for TPU pod metadata discovery, which "
         "has no counterpart on GPUs: give the coordinator as host:port (or "
         "launch with torchrun)")
+
+
+# the ranks that share one data index (tp * sp of the registered mesh) and
+# the process group of the data axes (`set_data_axes`): a process has one
+# mesh, as it has one default process group, and the data helpers below
+# read it where they read the process group's rank and size
+_DATA_AXES = {"model_parallel": 1, "group": None}
+
+
+def set_data_axes(group, model_parallel: int) -> None:
+    """Register the mesh's data group and its model-parallel factor (tp *
+    sp): the mesh's rank order is (dp, fsdp, tp, sp) row-major, so a
+    process's data index is its rank // model_parallel."""
+    _DATA_AXES.update(group=group, model_parallel=int(model_parallel))
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -99,9 +116,26 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def world_group():
-    """The process group of every process, or None in one process."""
-    return dist.group.WORLD if process_count() > 1 else None
+def _model_parallel() -> int:
+    return _DATA_AXES["model_parallel"] if dist.is_initialized() else 1
+
+
+def data_index() -> int:
+    """This process's index on the mesh's data axes (dp * fsdp)."""
+    return process_index() // _model_parallel()
+
+
+def data_count() -> int:
+    """The data degree, dp * fsdp: the processes over which a global batch's
+    rows are split."""
+    return process_count() // _model_parallel()
+
+
+def data_group():
+    """The process group of the data axes, or None with one data index."""
+    if data_count() == 1:
+        return None
+    return _DATA_AXES["group"] or dist.group.WORLD
 
 
 def is_primary() -> bool:
@@ -120,13 +154,13 @@ def local_device(device=None) -> torch.device:
 
 def local_slice(global_indices: np.ndarray) -> np.ndarray:
     """This process's contiguous share of a global batch's indices: all
-    processes run the same seeded sampler, and each loads 1 / process_count
-    of every batch."""
-    n = process_count()
+    processes run the same seeded sampler, and each loads 1 / data_count
+    of every batch, by its data index (the ranks of a tp group the same)."""
+    n = data_count()
     if n == 1:
         return global_indices
     per = len(global_indices) // n
-    r = process_index()
+    r = data_index()
     return global_indices[r * per:(r + 1) * per]
 
 
@@ -228,21 +262,23 @@ def broadcast_(tensors: list, src: int = 0, group=None) -> None:
 
 
 def gather_rows(x: np.ndarray) -> np.ndarray:
-    """Every process's rows of equal-size shards, concatenated in rank
-    order; with one process, `x`."""
-    if process_count() == 1:
+    """Every data index's rows of equal-size shards, concatenated in data
+    order (each row once, whatever tp is); with one data index, `x`."""
+    if data_count() == 1:
         return x
-    dev = _collective_device()
+    group = data_group()
+    dev = _collective_device(group)
     local = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    parts = [torch.empty_like(local) for _ in range(process_count())]
-    dist.all_gather(parts, local)
+    parts = [torch.empty_like(local) for _ in range(data_count())]
+    dist.all_gather(parts, local, group=group)
     return torch.cat(parts).cpu().numpy()
 
 
 def aggregate_host_metrics(metrics: dict) -> dict:
-    """The mean of host-local scalar metrics over processes (an all_gather
-    of fp32 values, as `hma_tpu`'s process_allgather); a copy with one."""
-    if process_count() == 1:
+    """The mean of host-local scalar metrics over the data indices (an
+    all_gather of fp32 values, as `hma_tpu`'s process_allgather); a copy
+    with one."""
+    if data_count() == 1:
         return dict(metrics)
     keys = sorted(metrics)
     gathered = gather_rows(np.asarray([[float(metrics[k]) for k in keys]], np.float32))

@@ -14,7 +14,16 @@ are above 1. FSDP2 gathers a block's parameters whole for its forward and
 backward, so the kernels read whole parameters as before, and reduces the
 gradients over both axes.
 
-tp and sp are ROADMAP.md Queue A item 10c; asking for them raises. Where
+Under "tp" (`tensor_parallel.split_model`, `tp_dim`) the attention heads
+and the MLP features are split over the tp ranks Megatron-style, each rank
+holding its part of every split parameter as a plain tensor, and the ranks
+of one tp group share their data index: they load the same rows and draw
+the same masks and noise (`distributed.data_index`). `shard_model` composes
+the two: tp-local parameters first, then FSDP2 over "fsdp" on each tp
+rank's local tensors. The mesh's rank order is (dp, fsdp, tp, sp)
+row-major, as `hma_tpu`'s devices are.
+
+sp is ROADMAP.md Queue A item 10c (sp); asking for it raises. Where
 `hma_tpu` builds a mesh over a subset of the devices when the factors ask
 for fewer, the port raises: the factors must fill the world exactly.
 """
@@ -33,8 +42,13 @@ from torch.distributed.tensor import DTensor, Shard
 from hma_tpu_torch.parallel import distributed
 
 AXES = ("dp", "fsdp", "tp", "sp")
-UNPORTED = "not ported yet: tp and sp are ROADMAP.md Queue A item 10c"
+UNPORTED = "not ported yet: sp is ROADMAP.md Queue A item 10c (sp)"
 FSDP_MIN_SIZE = 2**16  # `hma_tpu`'s param_spec shards parameters of this many elements up
+# hma_tpu's param_spec: the layers whose output features split over "tp"
+# (kernel (..., in, out) on its last dimension), those whose input features
+# do (on its second last), and embedding tables on their feature dimension
+TP_COLUMN = ("qkv", "fc1", "to_q", "to_k", "to_v", "ada_fc1", "ada_fc2")
+TP_ROW = ("proj", "fc2", "linear_out", "out_x_proj", "out")
 # the root model's methods that read its parameters outside `forward`: FSDP2
 # gathers the root's parameters around each (the rollouts' entry points)
 ROOT_METHODS = ("compute_logits", "frame_logits", "window_logits", "compute_latents",
@@ -45,11 +59,11 @@ def check_factors(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
                   sp: int = 1, world: Optional[int] = None) -> int:
     """The dp degree of (dp, fsdp, tp, sp) over `world` ranks (default: the
     process group's): dp defaults to world // (fsdp * tp * sp), as in
-    `hma_tpu`. Raises for tp or sp above 1 and for factors that ask for
-    more or fewer ranks than there are (fsdp above 1 in one process among
+    `hma_tpu`. Raises for sp above 1 and for factors that ask for more or
+    fewer ranks than there are (fsdp or tp above 1 in one process among
     them)."""
-    if max(tp, sp) > 1:
-        raise NotImplementedError(f"--tp {tp} --sp {sp}: {UNPORTED}")
+    if sp > 1:
+        raise NotImplementedError(f"--sp {sp}: {UNPORTED}")
     world = distributed.process_count() if world is None else world
     dp = world // (fsdp * tp * sp) if dp is None else dp
     if dp < 1 or dp * fsdp * tp * sp != world:
@@ -61,26 +75,46 @@ def check_factors(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
 
 def make_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
               sp: int = 1) -> DeviceMesh:
-    """A (dp, fsdp, tp, sp) DeviceMesh over every rank of the process group.
-    Raises without a process group."""
+    """A (dp, fsdp, tp, sp) DeviceMesh over every rank of the process group,
+    registered as this process's mesh (`use_mesh`). Raises without a
+    process group."""
     dp = check_factors(dp, fsdp, tp, sp)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "init_distributed (or launch with torchrun) first")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (dp, fsdp, tp, sp), mesh_dim_names=AXES)
+    return use_mesh(init_device_mesh(device_type, (dp, fsdp, tp, sp), mesh_dim_names=AXES))
+
+
+def use_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """Register `mesh` as this process's: `distributed`'s data index, data
+    count and data group are then the mesh's data axes'. Returns it."""
+    model_parallel = mesh["tp"].size() * mesh["sp"].size()
+    distributed.set_data_axes(data_group(mesh), model_parallel)
+    return mesh
 
 
 def data_group(mesh: DeviceMesh):
-    """The process group of the data axes ("dp", "fsdp") flattened: with tp
-    and sp at 1 (`check_factors` refuses more), every rank of the mesh."""
-    return dist.group.WORLD
+    """The process group of the data axes ("dp", "fsdp") flattened: the
+    ranks that share this rank's tp and sp index (every rank with tp and
+    sp at 1)."""
+    if mesh["tp"].size() * mesh["sp"].size() == 1:
+        return dist.group.WORLD
+    if not hasattr(mesh, "_hma_data_group"):
+        mesh._hma_data_group = mesh["dp", "fsdp"]._flatten("dp_fsdp").get_group()
+    return mesh._hma_data_group
+
+
+def tp_group(mesh: DeviceMesh):
+    """The process group of the mesh's "tp" axis: the ranks that share this
+    rank's data index and split its heads and features."""
+    return mesh["tp"].get_group()
 
 
 def default_mesh_factors(n: int) -> tuple[int, int, int, int]:
     """`hma_tpu`'s (dp, fsdp, tp, sp) factorisation of n devices (sp 2 from
-    8, then tp 2 from 4, then fsdp 2 from 2); from 4 devices up it asks for
-    tp or sp, which `make_mesh` refuses."""
+    8, then tp 2 from 4, then fsdp 2 from 2); from 8 devices up it asks for
+    sp, which `make_mesh` refuses."""
     sp = 2 if n % 8 == 0 and n >= 8 else 1
     rem = n // sp
     tp = 2 if rem % 2 == 0 and rem >= 4 else 1
@@ -90,32 +124,54 @@ def default_mesh_factors(n: int) -> tuple[int, int, int, int]:
     return dp, fsdp, tp, sp
 
 
-def param_spec(shape, fsdp: int, transposed: bool = False) -> Optional[int]:
-    """The dimension `hma_tpu`'s param_spec shards over "fsdp" (tp 1), or
-    None where it replicates: the largest dimension that `fsdp` divides
-    (the first of equals) of a parameter of at least FSDP_MIN_SIZE
-    elements. `transposed`: the parameter is an nn.Linear weight (out, in),
-    which `hma_tpu` holds as its kernel (in, out); the rule then runs on the
-    kernel's shape and the dimension returned is the weight's."""
+def tp_dim(parent: str, leaf: str, jax_shape, tp: int) -> Optional[int]:
+    """The dimension of `hma_tpu`'s leaf `parent/leaf` (its flax shape) that
+    its param_spec splits over "tp", or None where it replicates: a
+    column-split kernel's last, a row-split kernel's second last, an
+    embedding table's last, each where tp (above 1) divides it."""
+    jax_shape = tuple(jax_shape)
+    dim = None
+    if leaf == "kernel" and len(jax_shape) >= 2:
+        dim = -1 if parent in TP_COLUMN else (-2 if parent in TP_ROW else None)
+    elif leaf == "embedding" and len(jax_shape) == 2:
+        dim = -1
+    if dim is None or tp <= 1 or jax_shape[dim] % tp:
+        return None
+    return len(jax_shape) + dim
+
+
+def param_spec(shape, fsdp: int, transposed: bool = False,
+               taken: Optional[int] = None) -> Optional[int]:
+    """The dimension `hma_tpu`'s param_spec shards over "fsdp", or None where
+    it replicates: the largest dimension that `fsdp` divides (the first of
+    equals) of a parameter of at least FSDP_MIN_SIZE elements, other than
+    the one tp splits (`taken`, or None). `shape` is the whole parameter's.
+    `transposed`: the parameter is an nn.Linear weight (out, in), which
+    `hma_tpu` holds as its kernel (in, out); the rule then runs on the
+    kernel's shape and the dimensions taken and returned are the weight's."""
     shape = tuple(shape)
     if fsdp <= 1 or math.prod(shape) < FSDP_MIN_SIZE:
         return None
     jax_shape = shape[::-1] if transposed else shape
     for i in sorted(range(len(jax_shape)), key=lambda i: -jax_shape[i]):
-        if jax_shape[i] % fsdp == 0:
-            return len(shape) - 1 - i if transposed else i
+        dim = len(shape) - 1 - i if transposed else i
+        if dim != taken and jax_shape[i] % fsdp == 0:
+            return dim
     return None
 
 
-def shard_dim(module: nn.Module, leaf: str, p: torch.Tensor, fsdp: int) -> int:
+def shard_dim(module: nn.Module, leaf: str, p: torch.Tensor, fsdp: int,
+              part=None) -> int:
     """The dimension FSDP2 shards parameter `leaf` of `module` on: the one
-    `param_spec` names. FSDP2 cannot leave one parameter of a group
-    replicated, so where `hma_tpu` replicates (under FSDP_MIN_SIZE elements,
-    or no dimension divides) the port shards the last dimension (unevenly
-    where it must). That moves no number, and it keeps a domain-stacked
-    table's rows (dimension 0) whole on every rank."""
+    `param_spec` names, on the whole shape with tp's dimension taken where
+    tp splits it (`part`, a `tensor_parallel.Part`). FSDP2 cannot leave one
+    parameter of a group replicated, so where `hma_tpu` replicates (under
+    FSDP_MIN_SIZE elements, or no dimension divides) the port shards the
+    last dimension (unevenly where it must). That moves no number, and it
+    keeps a domain-stacked table's rows (dimension 0) whole on every rank."""
     transposed = isinstance(module, nn.Linear) and leaf == "weight" and p.ndim == 2
-    dim = param_spec(p.shape, fsdp, transposed)
+    shape, taken = (p.shape, None) if part is None else (part.shape, part.dim)
+    dim = param_spec(shape, fsdp, transposed, taken)
     return p.ndim - 1 if dim is None else dim
 
 
@@ -130,8 +186,11 @@ def _fsdp_modules(model: nn.Module):
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
-    """Shard `model`'s parameters over the mesh's "fsdp" axis with FSDP2, in
-    place (the counterpart of `make_param_shardings` and `device_put`):
+    """Shard `model`'s parameters over the mesh, in place (the counterpart
+    of `make_param_shardings` and `device_put`): first split over "tp"
+    (`tensor_parallel.split_model`, where tp is above 1), then over "fsdp"
+    with FSDP2 on each tp rank's local tensors (not at all where fsdp is 1
+    and tp above; a mesh of no tp and fsdp 1 is one FSDP2 group a rank):
     one `fully_shard` group per STBlock and per diffusion head (`DiffLoss`),
     then the root with the rest. Each parameter is Shard(`shard_dim`); with
     dp above 1 the groups are HSDP over ("dp", "fsdp"). The methods that
@@ -139,11 +198,20 @@ def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     the heads' loss and sampler, the root's rollout entry points) gather
     them too. The gradients are summed over the data axes, not averaged:
     the train step's loss is already this rank's share of the global-batch
-    mean. Returns `model`, whose parameters are now DTensors."""
+    mean. Returns `model`, whose parameters are then DTensors under fsdp
+    (on the "fsdp" sub-mesh of this rank's tp index)."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
+    from hma_tpu_torch.parallel.tensor_parallel import split_model, tp_of
+
+    if mesh["tp"].size() > 1 and getattr(model, "tp", None) is None:
+        split_model(model, tp_of(tp_group(mesh)))
     fsdp = mesh["fsdp"].size()
-    dims = {id(p): shard_dim(mod, leaf, p, fsdp) for mod in model.modules()
+    if fsdp == 1 and mesh["tp"].size() > 1:
+        return model
+    parts = getattr(model, "tp_parts", {})
+    dims = {id(p): shard_dim(mod, leaf, p, fsdp, parts.get(f"{name}.{leaf}" if name else leaf))
+            for name, mod in model.named_modules()
             for leaf, p in mod.named_parameters(recurse=False)}
     shard_mesh = mesh["dp", "fsdp"] if mesh["dp"].size() > 1 else mesh["fsdp"]
     for mod, methods in _fsdp_modules(model):
@@ -172,12 +240,6 @@ def shard_slices(t: torch.Tensor) -> tuple:
     shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
                                                           t.placements)
     return tuple(slice(o, o + s) for s, o in zip(shape, offset))
-
-
-def local_part(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """This rank's part of `full` (a whole tensor of `like`'s global shape),
-    sharded as `like` is."""
-    return full[shard_slices(like)]
 
 
 def shard_group(t: torch.Tensor):

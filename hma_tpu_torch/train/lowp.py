@@ -54,25 +54,25 @@ class MomentNoise:
     for parameter number `leaf` and moment `which` (0 for m, 1 for v),
     drawn from a generator seeded by (tag, count, leaf, which).
 
-    The bits are drawn at the parameter's global shape whatever its
-    sharding, as `hma_tpu`'s are: a shard takes its `part` of the draw, so
-    that fsdp ranks write the moments one process writes. The draw is
-    transient and full-size (its int32 bits: 4 bytes an element of the
-    leaf, or of the row for a stacked table's update)."""
+    The bits are drawn at the parameter's whole shape whatever its
+    sharding, as `hma_tpu`'s are: a rank takes its piece of the draw (its
+    tp part, then its fsdp shard: `step.AdamW`), so that sharded ranks write
+    the moments one process writes. The draw is transient and full-size
+    (its int32 bits: 4 bytes an element of the leaf, or of the row for a
+    stacked table's update)."""
 
     def __init__(self, tag: int, count: int, device):
         self.tag, self.count = tag, int(count)
         self.device = torch.device(device)
         self.generator = torch.Generator(self.device)
 
-    def bits(self, leaf: int, which: int, shape, part: tuple = ()) -> torch.Tensor:
-        """The bits at global `shape`; with `part` (one slice a dimension,
-        `mesh.shard_slices`), that part of them."""
+    def bits(self, leaf: int, which: int, shape) -> torch.Tensor:
+        """The bits at the whole `shape`."""
         seed = np.random.SeedSequence([self.tag, self.count, leaf, which])
         self.generator.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> 1))
         bits = torch.randint(0, 1 << 16, tuple(shape), generator=self.generator,
                              device=self.device, dtype=torch.int32)
-        return bits[part] if part else bits
+        return bits
 
 
 def resolve_moment_dtype(spec: Optional[str]) -> Optional[torch.dtype]:

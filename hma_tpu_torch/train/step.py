@@ -54,7 +54,17 @@ optimizers update each rank's shards (`to_local()`), with the moments
 sharded as their parameters are, the clip's global norm summed over the
 shards and the low-precision moments' random bits drawn at each leaf's
 global shape (`MomentNoise`), so the ranks take the step one process takes.
-Sliced gradients under fsdp are ROADMAP.md Queue A item 10e and raise.
+
+tp (a model split by `parallel.tensor_parallel.split_model`, `model.tp` and
+`model.tp_parts`): the split parameters' grads are this rank's parts and
+the replicated ones whole and equal on every rank of the tp group, so the
+step sums grads over the data group only; the clip's global norm sums the
+squared norms of the split grads over the tp group and counts each
+replicated one once; the optimizer updates the rank's parts, and a
+low-precision moment's random bits are the rank's part of the draw at the
+parameter's whole shape, taken through the same dealt columns
+(`tensor_parallel.take`), then its fsdp shard's.
+Sliced gradients under fsdp or tp are ROADMAP.md Queue A item 10e and raise.
 """
 
 from __future__ import annotations
@@ -75,10 +85,10 @@ from hma_tpu_torch.parallel.distributed import all_reduce_sum_, rank_rows
 from hma_tpu_torch.parallel.mesh import (
     full,
     local,
-    local_part,
     shard_group,
     shard_slices,
 )
+from hma_tpu_torch.parallel.tensor_parallel import take
 from hma_tpu_torch.train.lowp import (
     DENSE_TAG,
     SLICED_TAG,
@@ -88,9 +98,9 @@ from hma_tpu_torch.train.lowp import (
 )
 
 Schedule = Callable[[int], float]
-SLICED_FSDP = ("sliced gradients under fsdp are not ported yet (ROADMAP.md Queue A "
-               "item 10e): the one-row swap would replace parameters that FSDP2 owns; "
-               "use --sliced_grads off or auto")
+SLICED_FSDP = ("sliced gradients under fsdp or tp are not ported yet (ROADMAP.md "
+               "Queue A item 10e): the one-row swap would replace parameters that FSDP2 "
+               "or the tp split owns; use --sliced_grads off or auto")
 
 
 def custom_cosine_schedule(base_lr: float, warmup_steps: int, max_steps: int,
@@ -160,7 +170,9 @@ def mup_matrix_mask(model: nn.Module, base: Optional[nn.Module] = None) -> dict[
     the token embedding."""
     if base is not None:
         shapes = {n: p.shape for n, p in base.named_parameters()}
-        return {n: sum(a != b for a, b in zip(p.shape, shapes[n])) >= 2
+        parts = getattr(model, "tp_parts", {})  # a tp-split model: the whole shapes
+        return {n: sum(a != b for a, b in zip(parts[n].shape if n in parts else p.shape,
+                                              shapes[n])) >= 2
                 for n, p in model.named_parameters()}
     return {n: p.ndim >= 2 and n.rsplit(".", 1)[-1] != "bias" and "token_embed" not in n
             for n, p in model.named_parameters()}
@@ -196,13 +208,18 @@ class AdamW:
     update runs on this rank's shards: the moments are DTensors sharded as
     their parameters, the grad norm is the square root of the squared
     shard norms summed over the shard group, and a low-precision update
-    takes its shard's part of bits drawn at the leaf's global shape."""
+    takes its shard's part of bits drawn at the leaf's global shape.
+
+    On a tp-split model (`tp`, the group, and `tp_parts`, {name: Part}) the
+    split parameters' squared norms are summed over the group, and their
+    bits are drawn at the whole shape and dealt as the parameter is."""
 
     def __init__(self, params: dict[str, torch.Tensor],
                  learning_rate: Union[float, Schedule], weight_decay: float,
                  beta1: float, beta2: float, eps: float, max_grad_norm: float,
                  decay: dict[str, bool], mup_width_mult: Optional[float] = None,
-                 matrix: Optional[dict[str, bool]] = None, moment_dtype=None):
+                 matrix: Optional[dict[str, bool]] = None, moment_dtype=None,
+                 tp=None, tp_parts: Optional[dict] = None):
         self.lr = learning_rate
         self.b1, self.b2, self.eps = beta1, beta2, eps
         self.max_grad_norm = max_grad_norm
@@ -219,19 +236,42 @@ class AdamW:
         if any(sharded) and not all(sharded):
             raise ValueError("fsdp shards every parameter of the model or none")
         self.shard_group = shard_group(next(iter(params.values()))) if any(sharded) else None
-        # each leaf's global shape and its shard's index in it, for the bits
-        self.shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self.tp, self.tp_parts = tp, dict(tp_parts or {})
+        # each leaf's whole shape and its shard's index in its tp part, for
+        # the bits
+        self.shapes = {n: tuple(self.tp_parts[n].shape if n in self.tp_parts else p.shape)
+                       for n, p in params.items()}
         self.parts = {n: shard_slices(p) for n, p in params.items()}
 
-    def _norm(self, grads) -> torch.Tensor:
+    def _norm(self, grads: dict) -> torch.Tensor:
         """The global norm of the (local) grads: over every shard when the
-        parameters are sharded."""
-        if self.shard_group is None:
+        parameters are sharded, over the tp parts of the split ones."""
+        if self.shard_group is None and self.tp is None:
             return torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in grads]))
-        sq = torch.stack([torch.linalg.vector_norm(g).square() for g in grads]).sum()
-        dist.all_reduce(sq, group=self.shard_group)
-        return sq.sqrt()
+                [torch.linalg.vector_norm(g) for g in grads.values()]))
+
+        def sq(names):
+            return torch.stack([torch.linalg.vector_norm(grads[n]).square() for n in names]
+                               or [next(iter(grads.values())).new_zeros(())]).sum()
+
+        total = sq([n for n in grads if n not in self.tp_parts])
+        if self.tp is not None:
+            split = sq([n for n in grads if n in self.tp_parts])
+            dist.all_reduce(split, group=self.tp.group)
+            total = total + split
+        if self.shard_group is not None:
+            dist.all_reduce(total, group=self.shard_group)
+        return total.sqrt()
+
+    def _mine(self, n: str, whole: torch.Tensor, row: bool = False) -> torch.Tensor:
+        """This rank's piece of `whole`, a tensor of leaf n's whole shape (of
+        its row with `row`): its tp part, then its shard of that."""
+        if n in self.tp_parts:
+            part = self.tp_parts[n]
+            if row:  # a stacked table's row: the domain axis is never split
+                part = part._replace(dim=part.dim - 1, shape=part.shape[1:])
+            whole = take(whole, part, self.tp.rank, self.tp.size)
+        return whole[self.parts[n][1:] if row else self.parts[n]]
 
     def _update(self, n: str, p, g, m, v, count: int, lr: float, ok_f,
                 noise: Optional[dict], draw: Optional[MomentNoise], leaf: int,
@@ -245,14 +285,12 @@ class AdamW:
         if m.dtype == torch.float32:
             _adamw_(*args)
             return
-        shape, part = self.shapes[n], self.parts[n]
-        if row:
-            shape, part = shape[1:], part[1:]
+        shape = self.shapes[n][1:] if row else self.shapes[n]
         if noise is not None:
-            adamw_lowp_(*args, *(bits[part] for bits in noise[n]))
+            bits = noise[n]
         else:
-            adamw_lowp_(*args, draw.bits(leaf, 0, shape, part),
-                        draw.bits(leaf, 1, shape, part))
+            bits = [draw.bits(leaf, which, shape) for which in (0, 1)]
+        adamw_lowp_(*args, *(self._mine(n, b, row) for b in bits))
 
     def _draw(self, tag: int, count: int, device) -> Optional[MomentNoise]:
         return None if self.moment_dtype == torch.float32 else MomentNoise(tag, count, device)
@@ -264,7 +302,7 @@ class AdamW:
         bits of a low-precision update (at the global shapes), in place of
         the drawn ones."""
         grads = {n: local(g) for n, g in grads.items()}
-        g_norm = self._norm(grads.values())
+        g_norm = self._norm(grads)
         ok = ok_loss & torch.isfinite(g_norm)
         # a skipped step clips zero grads: its norm is 0, its scale 1
         norm = torch.where(ok, g_norm, 0.0)
@@ -288,10 +326,10 @@ class AdamW:
 
     def load_state_dict(self, state: dict) -> None:
         """From whole moments (any sharding's checkpoint): each rank keeps
-        its shards' part."""
+        its tp part's shard."""
         for n in self.m:
             for mine, given in ((self.m[n], state["m"][n]), (self.v[n], state["v"][n])):
-                local(mine).copy_(local_part(full(given), mine))
+                local(mine).copy_(self._mine(n, full(given).to(mine.device)))
         self.count = int(state["count"])
 
 
@@ -313,16 +351,19 @@ class DomainSlicedAdamW(AdamW):
         self.stacked = stacked
         self.num_domains = num_domains
         self.domain_count = [0] * num_domains
-        for n, p in params.items():
-            if (stacked[n] and isinstance(p, DTensor)
-                    and self.parts[n][0] != slice(0, p.shape[0])):
-                raise NotImplementedError(
-                    f"{n} is sharded on its domain axis: a domain's row must be "
-                    "whole on every rank (parallel.mesh.shard_dim)")
+        # a stacked table's first row on this rank: FSDP2 may shard the domain
+        # axis where tp has taken the table's widest (param_spec's rule)
+        self.first_row = {n: (self.parts[n][0].start if stacked[n] and isinstance(p, DTensor)
+                              else None) for n, p in params.items()}
 
-    def _row(self, g: torch.Tensor, d: int) -> torch.Tensor:
-        """Row d of a stacked table's grad: index 0 of a one-row grad (with
-        one domain the two coincide), else row d."""
+    def _row(self, n: str, g: torch.Tensor, d: int) -> Optional[torch.Tensor]:
+        """Row d of stacked table n's grad (this rank's shard of it): index 0
+        of a one-row grad (with one domain the two coincide), else row d, or
+        of a shard on the domain axis its row d, None where the rank holds
+        none of it."""
+        lo = self.first_row[n]
+        if lo is not None:
+            return g[d - lo] if lo <= d < lo + g.shape[0] else None
         return g[0] if g.shape[0] == 1 and self.num_domains != 1 else g[d]
 
     def step(self, params: dict, grads: dict, domain_id: int,
@@ -331,9 +372,9 @@ class DomainSlicedAdamW(AdamW):
         leaves' bits are drawn from the global count after this update, the
         rows' from it before, as `hma_tpu` keys them."""
         d = int(domain_id)
-        rows = {n: (self._row(local(g), d) if self.stacked[n] else local(g))
+        rows = {n: (self._row(n, local(g), d) if self.stacked[n] else local(g))
                 for n, g in grads.items()}
-        g_norm = self._norm(rows.values())
+        g_norm = self._norm({n: r for n, r in rows.items() if r is not None})
         ok = ok_loss & torch.isfinite(g_norm)
         scale = torch.where(g_norm < self.max_grad_norm, 1.0,
                             self.max_grad_norm / torch.clamp(g_norm, min=1e-20))
@@ -344,10 +385,13 @@ class DomainSlicedAdamW(AdamW):
         self.domain_count[d] += 1
         dense_draw = self._draw(DENSE_TAG, self.count, g_norm.device)
         for i, (n, p) in enumerate(params.items()):
+            if rows[n] is None:  # another rank holds row d
+                continue
             g = torch.where(ok, rows[n] * scale, 0.0)
             p, m, v = local(p.data), local(self.m[n]), local(self.v[n])
             if self.stacked[n]:
-                self._update(n, p[d], g, m[d], v[d], self.domain_count[d], lr, ok_f,
+                r = d - (self.first_row[n] or 0)
+                self._update(n, p[r], g, m[r], v[r], self.domain_count[d], lr, ok_f,
                              noise, rows_draw, i, row=True)
             else:
                 self._update(n, p, g, m, v, self.count, lr, ok_f, noise, dense_draw, i)
@@ -362,9 +406,11 @@ class DomainSlicedAdamW(AdamW):
 
 
 def _mup_kw(model: nn.Module, mup_width_mult, mup_base, moment_dtype) -> dict:
+    """The optimizer's muP, moment and tp arguments for `model`."""
     matrix = (mup_matrix_mask(model, mup_base)
               if mup_width_mult not in (None, 1.0) else None)
-    return dict(mup_width_mult=mup_width_mult, matrix=matrix, moment_dtype=moment_dtype)
+    return dict(mup_width_mult=mup_width_mult, matrix=matrix, moment_dtype=moment_dtype,
+                tp=getattr(model, "tp", None), tp_parts=getattr(model, "tp_parts", None))
 
 
 def make_optimizer(model: nn.Module, learning_rate, weight_decay: float = 0.01,
@@ -487,7 +533,8 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
     only (`domain_rows`). group: the data-parallel process group (see the
     module docstring); batch is then this rank's rows of the global batch.
     On a model sharded by `parallel.mesh.shard_model` FSDP2 has summed the
-    gradients over the group; sliced gradients then raise (item 10e).
+    gradients over the group; sliced gradients then raise (item 10e), as
+    they do on a tp-split model.
     `noise` (a call's keyword): the low-precision moments' bits, as
     `AdamW.step` takes them.
     """
@@ -495,7 +542,7 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
     device = next(iter(params.values())).device
     sharded = isinstance(next(iter(params.values())), DTensor)
     stacked = []
-    if stacked_mask is not None and sharded:
+    if stacked_mask is not None and (sharded or getattr(model, "tp", None) is not None):
         raise NotImplementedError(SLICED_FSDP)
     if stacked_mask is not None:
         if not isinstance(tx, DomainSlicedAdamW):

@@ -24,25 +24,28 @@ rounding; checkpoints hold them in bf16. `--lr_scheduler_type` other than
 
 Sliced gradients (`--sliced_grads`, `train/step.py`): "auto" turns them on
 when the domain-sliced AdamW is active and the world is one process, as
-`hma_tpu` does with no mesh; "on" and "off" force them ("on" under fsdp
-raises: ROADMAP.md Queue A item 10e).
+`hma_tpu` does with no mesh; "on" and "off" force them ("on" under fsdp or
+tp raises: ROADMAP.md Queue A item 10e).
 
 Data parallelism over the mesh's data axes "dp" and "fsdp" (`parallel/`):
 launched with torchrun (or `hma_tpu`'s HMA_TPU_* variables), one process a
 card, the factors filling the world. The global batch is the per-device
-batch times dp * fsdp (the world) and the LR scales by the effective batch;
-every rank runs the same sampler stream (so every rank trains the same
-domain), loads and collates its rows of each global batch, draws its rows
-of the batch's random draws, and the gradients are summed over the ranks
+batch times the world (every card of the mesh, as `hma_tpu` counts its
+devices) and the LR scales by the effective batch; every rank runs the same
+sampler stream (so every rank trains the same domain), loads and collates
+its data index's rows of each global batch, draws those rows of the
+batch's random draws, and the gradients are summed over the data axes
 (the loss is the global batch's mean), so that N ranks train as one process
 on the global batch. Under "dp" alone parameters and moments are
-replicated and the step sums the gradients. With `--fsdp` above 1 the model
-is sharded by FSDP2 (`parallel.mesh.shard_model`, after rank 0's initial
-weights or the resumed checkpoint are in place), the optimizer updates
-each rank's shards, and a checkpoint gathers them whole first. Rank 0 logs
+replicated and the step sums the gradients. With `--tp` above 1 the
+model's heads and MLP features are split over the tp ranks (they share
+their rows and draws), and with `--fsdp` above 1 it is sharded by FSDP2 on
+each tp rank's parts (`parallel.mesh.shard_model`, after rank 0's initial
+weights or the resumed checkpoint are in place); the optimizer updates
+each rank's parts, and a checkpoint gathers them whole first. Rank 0 logs
 and writes the checkpoints, every rank reads them. Not ported (they raise):
-tp, sp above 1 (ROADMAP.md Queue A item 10c), the native loader with more
-than one process, as in `hma_tpu`, and wandb.
+sp above 1 (ROADMAP.md Queue A item 10c), the native loader with more than
+one process, as in `hma_tpu`, and wandb.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ from hma_tpu_torch.metrics.lpips import make_lpips_fn
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
 from hma_tpu_torch.parallel import distributed
-from hma_tpu_torch.parallel.mesh import check_factors, data_group, make_mesh, shard_model
+from hma_tpu_torch.parallel.mesh import check_factors, make_mesh, shard_model
 from hma_tpu_torch.rollout.decode import make_token_decoder
 from hma_tpu_torch.rollout.maskgit import generate_tokens
 from hma_tpu_torch.tokenizer.convert import load_magvit2
@@ -154,9 +157,9 @@ def _refuse_unported(args: TrainArgs) -> None:
     if args.model_type not in ("discrete", "continuous"):
         raise ValueError(f"--model_type {args.model_type}")
     unported = {
-        "--tp/--sp above 1 (item 10c)": max(args.tp, args.sp) > 1,
-        "--sliced_grads on with --fsdp above 1 (item 10e)": (args.sliced_grads == "on"
-                                                             and args.fsdp > 1),
+        "--sp above 1 (item 10c (sp))": args.sp > 1,
+        "--sliced_grads on with --fsdp or --tp above 1 (item 10e)": (
+            args.sliced_grads == "on" and max(args.fsdp, args.tp) > 1),
         "--report_to wandb": args.report_to == "wandb",
     }
     asked = [k for k, v in unported.items() if v]
@@ -364,8 +367,8 @@ def run_training(args: TrainArgs) -> dict:
     multi = distributed.init_distributed(device=args.device)
     world = distributed.process_count()
     check_factors(args.dp, args.fsdp, args.tp, args.sp, world)
-    mesh = make_mesh(dp=args.dp, fsdp=args.fsdp) if multi else None
-    group = data_group(mesh) if mesh is not None else None
+    mesh = make_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp) if multi else None
+    group = distributed.data_group()  # None with one data index
     if args.use_native_loader and world > 1:
         raise ValueError("--use_native_loader is one process only: data-parallel "
                          "ranks load their rows through the Python assembler")
@@ -380,10 +383,10 @@ def run_training(args: TrainArgs) -> dict:
         build_domain_datasets(args, config))
     config = configure_model(args, config, domains, action_dims, action_stats, shared)
 
-    B = args.per_device_train_batch_size * world  # the global batch a microbatch (dp * fsdp)
+    B = args.per_device_train_batch_size * world  # the global batch a microbatch
     effective_batch = B * args.gradient_accumulation_steps
     # this rank's rows of each effective batch: its share of every microbatch
-    rows = (None if world == 1 else np.concatenate(
+    rows = (None if group is None else np.concatenate(
         [distributed.local_slice(r) for r in np.arange(effective_batch).reshape(-1, B)]))
     lr = scale_lr_by_batch(args.learning_rate, effective_batch)
     if args.overfit_first_batch:
@@ -409,8 +412,8 @@ def run_training(args: TrainArgs) -> dict:
         config, dtype=dtype, device=device,
         generator=torch.Generator(device).manual_seed(args.seed),
         remat=args.grad_checkpointing)
-    if group is not None:  # every rank starts from rank 0's draw
-        distributed.broadcast_(list(model.parameters()), src=0, group=group)
+    if multi:  # every rank starts from rank 0's draw
+        distributed.broadcast_(list(model.parameters()), src=0)
     start_step = 0
     resume = args.resume_from_checkpoint
     if resume == "latest":
@@ -428,7 +431,7 @@ def run_training(args: TrainArgs) -> dict:
     smask = None
     if args.domain_sliced_adam and config.num_domains > 1:
         smask = stacked_param_mask(model, config)
-    if args.fsdp > 1:  # the whole weights are in place: shard them
+    if max(args.fsdp, args.tp) > 1:  # the whole weights are in place: split, shard
         shard_model(model, mesh)
     if smask is not None:
         tx = make_domain_sliced_optimizer(model, **opt_kw, stacked_mask=smask,
@@ -453,7 +456,8 @@ def run_training(args: TrainArgs) -> dict:
             native_start_counts(sampler, steps_per_epoch, start_step, args.seed),
             not continuous)
 
-    microbatch = args.per_device_train_batch_size if args.gradient_accumulation_steps > 1 else 0
+    # a rank's rows of each microbatch
+    microbatch = B // distributed.data_count() if args.gradient_accumulation_steps > 1 else 0
     step_kw = dict(continuous=continuous, action_loss_weight=config.action_loss_weight,
                    group=group)
     train_step = make_train_step(model, tx, microbatch=microbatch,
@@ -480,15 +484,18 @@ def run_training(args: TrainArgs) -> dict:
         "num_datasets": len(domains),
         "device": str(device),
         "world_size": world,
-        "process_group": None if group is None else torch.distributed.get_backend(group),
+        "process_group": torch.distributed.get_backend() if multi else None,
         "sliced_grads_active": sliced_grads,
     }}
     ckpt_every = (int(args.checkpointing_steps)
                   if str(args.checkpointing_steps).isdigit() else None)
 
     def save(tag, **kw):
-        # every rank gathers fsdp's shards whole (a collective); one writer
-        model_state, opt_state = gather_state(model.state_dict()), gather_state(tx.state_dict())
+        # every rank gathers the fsdp shards and tp parts whole (collectives);
+        # one writer
+        tp = (getattr(model, "tp", None), getattr(model, "tp_parts", None))
+        model_state = gather_state(model.state_dict(), *tp)
+        opt_state = gather_state(tx.state_dict(), *tp)
         if distributed.is_primary():
             save_checkpoint(args.output_dir, tag, model_state, config,
                             opt_state=opt_state, step=step_i, **kw)
@@ -567,17 +574,18 @@ def run_training(args: TrainArgs) -> dict:
         save("final_checkpt")
     for loader in native_loaders or ():
         loader.close()
-    if group is not None:  # rank 0's checkpoint is whole before any rank returns
-        torch.distributed.barrier(group)
+    if multi:  # rank 0's checkpoint is whole before any rank returns
+        torch.distributed.barrier()
     return last_metrics
 
 
 def run_eval(eval_step, val_assembler: BatchAssembler, val_sets,
              args: TrainArgs) -> dict:
     """Teacher-forced eval over up to `max_eval_steps` val batches of the
-    per-device batch times the world size, each rank on its rows."""
+    per-device batch times the world size, each rank on its data index's
+    rows."""
     B = args.per_device_eval_batch_size * distributed.process_count()
-    rows = distributed.local_slice(np.arange(B)) if distributed.process_count() > 1 else None
+    rows = distributed.local_slice(np.arange(B)) if distributed.data_count() > 1 else None
     sampler = MultiTaskBatchSampler([len(d) for d in val_sets], batch_size=B,
                                     temperature=4.0, seed=0)
     sums: dict = {}

@@ -15,12 +15,14 @@ process). Data-parallel on several cards with torchrun, one process a card:
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... [--dp 8]
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --fsdp 8
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --dp 2 --fsdp 4
+    torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --fsdp 4 --tp 2
 
 (`--per_device_train_batch_size` is each card's share; `--fsdp` shards the
-parameters and moments with FSDP2, as HSDP with `--dp` above 1 too; add
+parameters and moments with FSDP2, as HSDP with `--dp` above 1 too; `--tp`
+splits attention heads and MLP features over tensor-parallel ranks; add
 `--device cpu` for gloo processes on the CPU). Flags for what it does not
-port yet (`--tp/--sp` above 1, `--sliced_grads on` with `--fsdp`, wandb)
-raise.
+port yet (`--sp` above 1, `--sliced_grads on` with `--fsdp` or `--tp`,
+wandb) raise.
 """
 
 from __future__ import annotations

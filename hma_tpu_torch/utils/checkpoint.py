@@ -11,11 +11,13 @@ other directory (`final_checkpt`, `epoch_1_pinned`) ever is.
 or from a run directory (its newest one).
 
 A checkpoint holds whole tensors whatever the sharding it was written
-under: an fsdp run gathers each DTensor (`gather_state`, a collective that
-every rank calls) before rank 0 writes; a run loads the model's whole
-state before it shards the model, and `AdamW.load_state_dict` keeps each
-rank's part of the moments. So a checkpoint written under fsdp loads into
-one process, and the other way round.
+under, in the one-process layout: an fsdp run gathers each DTensor and a tp
+run each split parameter's parts, undoing their dealt column order
+(`gather_state`, collectives that every rank calls), before rank 0 writes;
+a run loads the model's whole state before it splits and shards the model,
+and `AdamW.load_state_dict` keeps each rank's part of the moments. So a
+checkpoint written under fsdp or tp loads into one process, and the other
+way round.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from hma_tpu_torch.config import DiffusionGenieConfig, GenieConfig, load_config
 from hma_tpu_torch.models.st_mar import STMAR
 from hma_tpu_torch.models.st_mask_git import STMaskGIT
 from hma_tpu_torch.parallel.mesh import full
+from hma_tpu_torch.parallel.tensor_parallel import gather_whole
 
 CONFIG_FILE = "config.json"
 STATE_FILE = "model.pt"
@@ -54,12 +57,19 @@ def save_checkpoint(output_dir: str, tag: str, model_state: dict,
     return str(out)
 
 
-def gather_state(tree):
+def gather_state(tree, tp=None, tp_parts: Optional[dict] = None, key: str = ""):
     """`tree` (a state dict or the optimizer's state) with every DTensor
-    gathered whole: a collective, so every rank of the mesh calls it."""
+    gathered whole and, on a tp-split model (`tp`, its `tp_parts`), every
+    leaf named as a split parameter joined from the tp ranks' parts in the
+    parameter's own order: collectives, so every rank of the mesh calls it."""
     if isinstance(tree, dict):
-        return {k: gather_state(v) for k, v in tree.items()}
-    return full(tree) if torch.is_tensor(tree) else tree
+        return {k: gather_state(v, tp, tp_parts, k) for k, v in tree.items()}
+    if not torch.is_tensor(tree):
+        return tree
+    whole = full(tree)
+    if tp is not None and key in (tp_parts or {}):
+        whole = gather_whole(whole, tp_parts[key], tp)
+    return whole
 
 
 def _to_cpu(tree):

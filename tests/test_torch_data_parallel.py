@@ -509,10 +509,12 @@ def test_collate_rows_are_the_whole_batch():
 
 
 def test_what_cannot_run_raises(monkeypatch, tmp_path):
-    # tp and sp wait for ROADMAP A10c (fsdp with them too)
-    for kw in ({"fsdp": 2, "sp": 2}, {"tp": 2}, {"sp": 2}):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+    # sp waits for ROADMAP A10c (sp), with fsdp or tp beside it too; tp alone
+    # runs (tests/test_torch_tp.py)
+    for kw in ({"fsdp": 2, "sp": 2}, {"tp": 2, "sp": 2}, {"sp": 2}):
+        with pytest.raises(NotImplementedError, match=r"item 10c \(sp\)"):
             port_mesh.check_factors(**kw, world=2)
+    assert port_mesh.check_factors(tp=2, world=2) == 1
     # factors the world cannot fill, more or fewer: no subset mesh
     for dp in (1, 4):
         with pytest.raises(ValueError, match="world has 2"):

@@ -317,7 +317,7 @@ def test_use_feature_forwards_every_flag(monkeypatch):
     ("evaluate_feature", ["--vae_checkpoint", "{tmp}/v.pt"], FileNotFoundError, "v.pt"),
     ("evaluate_feature", ["--i3d_weights", "{tmp}/i.pt"], FileNotFoundError, "i.pt"),
     ("evaluate_feature", ["--use_wandb"], NotImplementedError, "item 11"),
-    ("evaluate_feature", ["--tp", "2"], NotImplementedError, "item 10c")])
+    ("evaluate_feature", ["--sp", "2"], NotImplementedError, "item 10c")])
 def test_unsupported_flags_raise(tmp_path, cli, extra, error, match):
     main = evaluate_main if cli == "evaluate" else evaluate_feature_main
     with pytest.raises(error, match=match):

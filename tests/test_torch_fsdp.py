@@ -113,13 +113,16 @@ def _jax_card(continuous: bool) -> dict:
     return _domains(tiny_card(num_layers=1, d_model=64), 3)
 
 
-def _jax_case(continuous: bool, bf16: bool, dp: int = 1) -> tuple:
-    """hma_tpu's train step on a (dp, fsdp=2) mesh (parameters placed by
+def _jax_case(continuous: bool, bf16: bool, dp: int = 1, fsdp: int = 2, tp: int = 1,
+              card: dict = None) -> tuple:
+    """hma_tpu's train step on a (dp, fsdp, tp) mesh (parameters placed by
     make_param_shardings, the optimizer initialised under jit so its moments
     inherit them, as hma_tpu's trainer does), 2 steps (domains 1, 2) of the
-    domain-sliced AdamW: (what the ranks need, what they must end with, the
-    placements hma_tpu gives)."""
-    card = _jax_card(continuous)
+    domain-sliced AdamW on `card` (default `_jax_card`'s, with 3 domains):
+    (what the ranks need, what they must end with, the placements hma_tpu
+    gives: {port name: (fsdp dim, shard shape, size, tp dim)}, the dims and
+    shapes the port's)."""
+    card = _domains(card, 3) if card else _jax_card(continuous)
     card_more = _domains(card, 4)
     jcfg_cls, jm_cls = ((JaxDiffusionGenieConfig, JaxSTMAR) if continuous
                         else (JaxGenieConfig, JaxSTMaskGIT))
@@ -145,7 +148,7 @@ def _jax_case(continuous: bool, bf16: bool, dp: int = 1) -> tuple:
         stacked_mask=mask, num_domains=3, moment_dtype=jnp.bfloat16 if bf16 else None)
     step = jax_step.make_train_step(jm, tx, continuous=continuous,
                                     action_loss_weight=jcfg.action_loss_weight)
-    mesh = jax_mesh.make_mesh(2 * dp, dp=dp, fsdp=2)
+    mesh = jax_mesh.make_mesh(dp * fsdp * tp, dp=dp, fsdp=fsdp, tp=tp)
     shardings = jax_mesh.make_param_shardings(params, mesh)
     put, rep = jax_mesh.batch_sharding(mesh), NamedSharding(mesh, PartitionSpec())
     cfg = (DiffusionGenieConfig if continuous else GenieConfig)(**card)
@@ -165,7 +168,7 @@ def _jax_case(continuous: bool, bf16: bool, dp: int = 1) -> tuple:
             return state, metrics, rec.tree(), list(sink)
 
         p = jax.device_put(params, shardings)
-        opt = jax.tree.map(lambda x: x if len(x.sharding.device_set) == 2 * dp
+        opt = jax.tree.map(lambda x: x if len(x.sharding.device_set) == dp * fsdp * tp
                            else jax.device_put(x, rep), jax.jit(tx.init)(p))
         state = jax_step.TrainState(p, opt, jax.device_put(jnp.asarray(0), rep))
         losses, draws, noise = [], [], []
@@ -204,10 +207,12 @@ def _jax_case(continuous: bool, bf16: bool, dp: int = 1) -> tuple:
         dense = getattr(path[-1], "key", None) == "kernel" and len(s.shape) == 2
         spec_ = tuple(sh.spec) + (None,) * (len(s.shape) - len(sh.spec))
         dim = spec_.index("fsdp") if "fsdp" in spec_ else None
+        dim_tp = spec_.index("tp") if "tp" in spec_ else None
         shard = sh.shard_shape(s.shape)
         if dense:
             dim, shard = (None if dim is None else 1 - dim), shard[::-1]
-        placements[name] = (dim, tuple(shard), math.prod(s.shape))
+            dim_tp = None if dim_tp is None else 1 - dim_tp
+        placements[name] = (dim, tuple(shard), math.prod(s.shape), dim_tp)
     return spec, want, placements
 
 
@@ -389,12 +394,12 @@ def test_fsdp_placements_follow_param_spec(fsdp_run, case):
     parameters param_spec shards, the last dimension for the rest."""
     want = fsdp_run["placements"][case]
     ranks = _ranks(fsdp_run["root"], case)
-    big = [n for n, (_, _, size) in want.items() if size >= port_mesh.FSDP_MIN_SIZE]
+    big = [n for n, (_, _, size, _) in want.items() if size >= port_mesh.FSDP_MIN_SIZE]
     assert big and any(want[n][0] is not None for n in big)  # something is sharded
     for r in ranks:
         got = r["placements"]
         assert set(got) == set(want)
-        for n, (dim, shard, size) in want.items():
+        for n, (dim, shard, size, _) in want.items():
             if dim is not None:
                 assert got[n] == (dim, shard), (n, got[n], dim, shard)
             else:

@@ -10,7 +10,8 @@ bit for bit against K3'/K4' on the same values regrouped, also at T 1 and
 card. K1'-K5' also at the head dims of the other shipped cards: D 16 (the
 aligned path) and D 61 (the ragged path, zero-padded to 64 inside the
 kernel), and on the ragged path at each padded width: D 12 (to 16), 20, 24
-and 27 (to 32); the ragged path takes rows at any alignment. Marked gpu:
+and 27 (to 32); the ragged path takes rows at any alignment. K1'-K5' at
+the head count a tp 2 rank gives them (H 4 of the cards' 8). Marked gpu:
 they need a card and skip elsewhere. This file imports no JAX, so on a
 machine without it run it alone, without the JAX-side conftest:
 
@@ -592,3 +593,47 @@ def test_denoise_loop_raises_on_what_the_kernel_does_not_take():
     wide = _denoise_inputs(4, 6, 5, 1280, 1, torch.float32, seed=7)  # H > 1152
     with pytest.raises(ValueError, match="H <= 1152"):
         fused_denoise_loop(**wide, dtype=torch.float32, **kw)
+
+
+# The shapes a tp 2 rank gives K1'-K5' (chip_smoke.py phase 25): the d256
+# step's spatial (B*T, S, H / 2, D) and temporal (B*S, T, H / 2, D) calls,
+# and the d512 STMAR card's resident (B, T, S, H / 2, D) call.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1'", "K2'", "K3'", "K4'", "K5' fwd", "K5' bwd"])
+def test_kernels_at_tp2_heads_match_plain(dtype, kernel):
+    _need_card()
+    fp32 = dtype == torch.float32
+    if kernel.startswith("K5'"):
+        shape = (8, 12, 128, 4, 64)
+        q, k, v = _resident_qkv(shape, dtype, seed=40)
+        out, lse = fused_temporal_attention_resident(q, k, v)
+        if kernel == "K5' fwd":
+            _assert_matches(out, lse, *temporal_resident_plain(q, k, v), 1e-5 if fp32 else 1e-2)
+            return
+        dout = torch.randn(*shape[:3], 2, *shape[3:], device="cuda").to(dtype)[..., 0, :, :]
+        got = fused_temporal_attention_resident_bwd(q, k, v, out, lse, dout)
+        want = temporal_resident_bwd_plain(q, k, v, out, lse, dout)
+        _assert_grads_match([g.contiguous() for g in got.unbind(3)],
+                            [w.contiguous() for w in want.unbind(3)],
+                            BWD_FP32_TOL if fp32 else BWD_BF16_TOL["K4'"])
+        return
+    spatial = kernel in ("K1'", "K2'")
+    lead, H, D = ((96, 320) if spatial else (2560, 12)), 4, 32
+    q, k, v = _strided_qkv(lead, H, D, dtype, seed=41)
+    if spatial:
+        fwd, plain = (lambda *a: fused_attention(*a, False),
+                      lambda *a: fused_attention_plain(*a, False))
+        bwd, bwd_plain = (lambda *a: fused_attention_bwd(*a, False),
+                          lambda *a: fused_attention_bwd_plain(*a, False))
+    else:
+        fwd, plain = fused_temporal_attention, fused_temporal_attention_plain
+        bwd, bwd_plain = fused_temporal_attention_bwd, fused_temporal_attention_bwd_plain
+    out, lse = fwd(q, k, v)
+    if kernel in ("K1'", "K3'"):
+        _assert_matches(out, lse, *plain(q, k, v),
+                        1e-5 if fp32 else (4e-3 if spatial else 1e-2))
+        return
+    dout = _strided_dout(lead, H, D, dtype, seed=42)
+    _assert_grads_match(bwd(q, k, v, out, lse, dout), bwd_plain(q, k, v, out, lse, dout),
+                        BWD_FP32_TOL if fp32 else BWD_BF16_TOL["K2'" if spatial else "K4'"])

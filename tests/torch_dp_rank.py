@@ -1,13 +1,14 @@
-"""Rank process of tests/test_torch_data_parallel.py and
-tests/test_torch_fsdp.py (not a test module).
+"""Rank process of tests/test_torch_data_parallel.py, tests/test_torch_fsdp.py
+and tests/test_torch_tp.py (not a test module).
 
 Launched twice with torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK,
-MASTER_ADDR, MASTER_PORT) as `torch_dp_rank.py ROOT [FSDP]`: each process
-joins the gloo group through
+MASTER_ADDR, MASTER_PORT) as `torch_dp_rank.py ROOT [FSDP [TP]]`: each
+process joins the gloo group through
 `hma_tpu_torch.parallel.distributed.init_distributed(device="cpu")`, makes
-the (dp, fsdp) mesh with fsdp FSDP (default 1: data parallelism alone; the
-flags in ROOT's argv files say the same; dp is the rest of the world), then
-(all but 3 with `--steps_only`, launched as any number of processes)
+the (dp, fsdp, tp) mesh with fsdp FSDP and tp TP (default 1 each: data
+parallelism alone; the flags in ROOT's argv files say the same; dp is the
+rest of the world), then (all but 3 with `--steps_only`, launched as any
+number of processes)
 
   1. runs `train_multi` for 3 steps from the test's initial weights, then
      again resumed from its step-2 checkpoint, recording every step's
@@ -18,8 +19,12 @@ flags in ROOT's argv files say the same; dp is the rest of the world), then
      default both families with hma_tpu's draws handed in, the discrete
      case with sliced gradients, once the test has written them, and both
      families drawing their own dropout, action drops and diffusion noise),
-     on a model sharded by FSDP2 under fsdp, and saves its parameters and
-     moments (gathered whole) and, sharded, each parameter's placement;
+     on a model sharded by FSDP2 under fsdp and split under tp, and saves
+     its parameters and moments (gathered whole) and, sharded or split,
+     each parameter's placement;
+  4. with `rollouts.pt` in ROOT, runs the cached rollouts it names (the
+     discrete greedy one and the MAR one with handed-in draws) on the model
+     split over tp, and saves their outputs;
 
 and saves what the test compares. It imports no JAX.
 """
@@ -40,10 +45,13 @@ from hma_tpu_torch.evaluate_feature import main as evaluate_feature_main  # noqa
 from hma_tpu_torch.models.st_mar import STMAR  # noqa: E402
 from hma_tpu_torch.models.st_mask_git import STMaskGIT  # noqa: E402
 from hma_tpu_torch.parallel import distributed as dist  # noqa: E402
-from hma_tpu_torch.parallel.mesh import data_group, full, make_mesh, shard_model  # noqa: E402
+from hma_tpu_torch.parallel.mesh import make_mesh, shard_model  # noqa: E402
+from hma_tpu_torch.rollout.mar import generate_latents  # noqa: E402
+from hma_tpu_torch.rollout.maskgit import generate_tokens  # noqa: E402
 from hma_tpu_torch.train import step as port_step  # noqa: E402
 from hma_tpu_torch.train import trainer  # noqa: E402
 from hma_tpu_torch.train_multi import main as train_main  # noqa: E402
+from hma_tpu_torch.utils.checkpoint import gather_state  # noqa: E402
 
 LR, WD, EPS = 3e-3, 0.05, 1e-3
 
@@ -63,9 +71,11 @@ def train_case(spec: dict, group=None, mesh=None) -> dict:
     `spec["draws"]` and the moments' bits `spec["noise"]` handed in where
     there are some, grad accumulation over microbatches of
     `spec["microbatch"]` global rows where it is set (a rank takes its rows
-    of each). With a `mesh` whose fsdp is above 1 the model is sharded by
-    FSDP2. Returns the parameters and moments (whole), the counts, every
-    step's metrics and, sharded, {name: (shard dim, local shape)}."""
+    of each). With a `mesh` whose fsdp or tp is above 1 the model is split
+    over tp and sharded by FSDP2 (`shard_model`). Returns the parameters and
+    moments (whole), the counts, every step's metrics and, sharded or
+    split, {name: (fsdp shard dim or None, local shape, tp split dim or
+    None)}."""
     continuous = spec["continuous"]
     cls, cfg_cls = (STMAR, DiffusionGenieConfig) if continuous else (STMaskGIT, GenieConfig)
     cfg = cfg_cls(**spec["card"])
@@ -74,14 +84,22 @@ def train_case(spec: dict, group=None, mesh=None) -> dict:
     more = cfg_cls(**spec["card_more"])
     stacked = port_step.domain_stacked_mask(model, cls(more, dtype=torch.float32,
                                                        device="meta"))
-    sharded = mesh is not None and mesh["fsdp"].size() > 1
+    sharded = mesh is not None and mesh["fsdp"].size() * mesh["tp"].size() > 1
+    split = {}
     if sharded:
         shard_model(model, mesh)
+        if getattr(model, "tp", None) is not None:  # the parts, and the whole again
+            params = {n: p.detach() for n, p in model.named_parameters()}
+            whole = gather_state(params, model.tp, model.tp_parts)
+            split = {"roundtrip_differs": [n for n, t in whole.items()
+                                           if not torch.equal(t, spec["state"][n])]}
+            if mesh["fsdp"].size() == 1:
+                split["local_initial"] = {n: params[n].clone() for n in model.tp_parts}
     tx = port_step.make_domain_sliced_optimizer(
         model, port_step.custom_cosine_schedule(LR, 1, 10), WD, eps=EPS,
         stacked_mask=stacked, num_domains=cfg.num_domains,
         moment_dtype=spec.get("moment_dtype"))
-    world = 1 if group is None else dist.process_count()
+    world = 1 if group is None else dist.data_count()
     mb = spec.get("microbatch", 0)
     sliced = spec.get("sliced", not continuous)
     step = port_step.make_train_step(
@@ -102,13 +120,19 @@ def train_case(spec: dict, group=None, mesh=None) -> dict:
         noise = spec["noise"][i] if spec.get("noise") else None
         metrics.append({k: float(v) for k, v in
                         step(local, rng=i, draws=draws, noise=noise).items()})
-    out = {"params": {n: full(p.detach()) for n, p in model.named_parameters()},
-           "m": {n: full(m) for n, m in tx.m.items()},
-           "v": {n: full(v) for n, v in tx.v.items()},
-           "count": tx.count, "domain_count": tx.domain_count, "metrics": metrics}
-    if sharded:
+    tp = (getattr(model, "tp", None), getattr(model, "tp_parts", None))
+    out = {"params": gather_state({n: p.detach() for n, p in model.named_parameters()}, *tp),
+           **gather_state({"m": tx.m, "v": tx.v}, *tp),
+           "count": tx.count, "domain_count": tx.domain_count, "metrics": metrics,
+           **split}
+    if sharded and mesh["fsdp"].size() > 1:
         out["placements"] = {n: (p.placements[-1].dim, tuple(p.to_local().shape))
                              for n, p in model.named_parameters()}
+    if tp[0] is not None:
+        out["tp_placements"] = {n: (tp[1][n].dim if n in tp[1] else None,
+                                    tuple(p.to_local().shape if hasattr(p, "to_local")
+                                          else p.shape))
+                                for n, p in model.named_parameters()}
     return out
 
 
@@ -172,9 +196,33 @@ def run_train_multi(root: Path) -> None:
         {"straight": straight, "resumed": resumed, "from_one": seen, "writers": writers}))
 
 
+def run_rollouts(root: Path, mesh) -> None:
+    """The rollouts of `rollouts.pt` on the model split over the mesh: the
+    discrete greedy rollout and the MAR one with handed-in draws."""
+    spec = torch.load(root / "rollouts.pt", weights_only=False)
+    out = {}
+    for name, case in spec.items():
+        continuous = name == "mar"
+        cls, cfg_cls = (STMAR, DiffusionGenieConfig) if continuous else (STMaskGIT, GenieConfig)
+        model = cls(cfg_cls(**case["card"]), dtype=torch.float32, device="cpu")
+        model.load_state_dict(case["state"])
+        shard_model(model.eval(), mesh)
+        g = dist.rank_rows(torch.Generator().manual_seed(0), dist.data_group())
+        with torch.no_grad():
+            if continuous:
+                out[name] = generate_latents(model, case["latents"], 2, case["actions"], 0,
+                                             g, draws=case["draws"])
+            else:
+                out[name] = generate_tokens(model, case["tokens"], 2, case["actions"], 0,
+                                            g, maskgit_steps=2, temperature=0.0)
+        out[f"{name}_heads"] = model.init_cache(1)[0].shape[-2]
+    torch.save(out, root / f"rollouts_rank{dist.process_index()}.pt")
+
+
 def main():
     root = Path(sys.argv[1])
     fsdp = int(sys.argv[2]) if len(sys.argv) > 2 else 1
+    tp = int(sys.argv[3]) if len(sys.argv) > 3 and sys.argv[3].isdigit() else 1
     assert dist.init_distributed(device="cpu")
     out = {}
     if "--steps_only" not in sys.argv:  # else only the step cases, any world
@@ -183,16 +231,18 @@ def main():
         out = {"evaluate": evaluate_main(json.loads((root / "eval_argv.json").read_text())),
                "evaluate_feature": evaluate_feature_main(
                    json.loads((root / "feature_argv.json").read_text()))}
-    mesh = make_mesh(fsdp=fsdp)
+    mesh = make_mesh(fsdp=fsdp, tp=tp)
+    if (root / "rollouts.pt").exists():
+        run_rollouts(root, mesh)
     cases = root / "cases.json"
     cases = (json.loads(cases.read_text()) if cases.exists() else
              ("discrete_drawn", "continuous_drawn", "discrete", "continuous"))
     for case in cases:
-        run_case(root, case, data_group(mesh), mesh)
-    if fsdp > 1:  # sliced gradients on a sharded model raise (ROADMAP item 10e)
+        run_case(root, case, dist.data_group(), mesh)
+    if fsdp * tp > 1:  # sliced gradients on a sharded model raise (ROADMAP item 10e)
         spec = torch.load(root / f"{cases[0]}_case.pt", weights_only=False)
         try:
-            train_case({**spec, "sliced": True}, data_group(mesh), mesh)
+            train_case({**spec, "sliced": True}, dist.data_group(), mesh)
         except NotImplementedError as e:
             out["sliced_refused"] = str(e)
     out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hma_tpu"))
