@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-five)
+    python3 chip_smoke.py [--phases 1,2,3,...]   (default: all twenty-six)
 
 Phases, each failing the run on any error:
   1. device: the card's name and power limit (nvidia-smi), the device count;
@@ -361,6 +361,22 @@ Phases, each failing the run on any error:
      and each rank's shard of every grad within DP_TOL. Each rank's launch
      counts, peak memory and step time beside one process's; phase 3's H 4
      records take (a)'s and (b)'s launches.
+ 26. sp (every frame's tokens split over sequence-parallel ranks,
+     `parallel.sequence_parallel`), SP_RANKS gloo ranks sharing the card
+     (this script started with --tp_worker at sp 2), each against one
+     process on phase 25's weights, batches and draws (one process's runs
+     are made once for both phases): (a) the d256 bf16 step, spatial
+     attention through the all-to-all to whole frames of H 4 (K1'/K2' at
+     (96, 320, 4, 32)), the temporal passes on a rank's 1280 sites (K3'/K4'
+     at H 8), loss and every (whole) grad within TP_BF16_TOL, then the fp32
+     cached rollout (tokens equal in at least TP_TOKEN_SHARE); (b) the d512
+     STMAR resident bf16 step (K5' on a rank's 64 of 128 tokens) likewise,
+     then the fp32 cached MAR rollout with handed-in draws (K6' on the
+     gathered rows; within TP_FP32_TOL); each rank's caches hold half of a
+     row's sites; its launch counts, bytes, peak memory and step time
+     beside one process's; the exchange's time at (a)'s shapes. Phase 3's
+     K1'/K2' (96, 320, 4, 32) records add (a)'s launches to phase 25's, its
+     N 1280 and (8, 12, 64, 8, 64) records take (a)'s and (b)'s.
 
 Prints one JSON line of kernel records, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -838,12 +854,17 @@ def kernel_phase():
                ((96, 320, 8, 16), False, True), ((96, 320, 8, 61), False, True),
                ((96, 128, 8, 16), False, True), ((96, 128, 8, 32), False, True),
                ((3, 77, 4, 64), True, False),
-               ((96, 320, 4, 32), False, True)]  # phase 25's tp 2 d256 step: H 4 a rank
+               # phases 25 and 26 (H 4 a rank after tp's split or sp's
+               # exchange): the d256 step, the d512 STMAR step, the d256
+               # cached rollout (B 8) and the MAR rollout (B 2)
+               ((96, 320, 4, 32), False, True), ((96, 128, 4, 64), False, True),
+               ((8, 320, 4, 32), False, True), ((2, 128, 4, 64), False, True)]
     spatial += [(s, c, False) for s, c in SPATIAL_EDGES]
     temporal = [((2560, 12, 8, 32), True), ((1024, 12, 8, 64), True),
                 ((2560, 12, 8, 16), True), ((2560, 12, 8, 61), True),
                 ((1024, 12, 8, 16), True), ((1024, 12, 8, 32), True),
-                ((1000, 5, 3, 64), False), ((2560, 12, 4, 32), True)]
+                ((1000, 5, 3, 64), False), ((2560, 12, 4, 32), True),
+                ((1280, 12, 8, 32), True)]  # phase 26's sp 2 d256 step: a rank's sites
     temporal += [(s, False) for s in TEMPORAL_EDGES]
     cases = ([("K1'", s, c, main) for s, c, main in spatial]
              + [("K3'", s, True, main) for s, main in temporal])
@@ -880,11 +901,13 @@ def kernel_phase():
                  ("K2'", (96, 320, 8, 16), False, True), ("K2'", (96, 320, 8, 61), False, True),
                  ("K2'", (96, 128, 8, 16), False, True), ("K2'", (96, 128, 8, 32), False, True),
                  ("K2'", (3, 77, 4, 64), True, False), ("K2'", (96, 320, 4, 32), False, True),
+                 ("K2'", (96, 128, 4, 64), False, True),
                  *(("K2'", s, c, False) for s, c in SPATIAL_EDGES),
                  ("K4'", (2560, 12, 8, 32), True, True), ("K4'", (1024, 12, 8, 64), True, True),
                  ("K4'", (2560, 12, 8, 16), True, True), ("K4'", (2560, 12, 8, 61), True, True),
                  ("K4'", (1024, 12, 8, 16), True, True), ("K4'", (1024, 12, 8, 32), True, True),
                  ("K4'", (1000, 5, 3, 64), True, False), ("K4'", (2560, 12, 4, 32), True, True),
+                 ("K4'", (1280, 12, 8, 32), True, True),
                  *(("K4'", s, True, False) for s in TEMPORAL_EDGES)]
     for name, shape, causal, main in bwd_cases:
         lead, H, D = shape[:2], shape[2], shape[3]
@@ -1063,6 +1086,7 @@ def resident_kernel_phase():
 
     records = []
     for shape, main in (((8, 12, 128, 8, 64), True), ((8, 12, 128, 4, 64), True),
+                        ((8, 12, 64, 8, 64), True),  # phase 26: a rank's 64 of 128 tokens
                         ((8, 12, 320, 8, 61), True),
                         ((8, 12, 128, 8, 16), True), ((8, 12, 128, 8, 32), True),
                         ((3, 5, 7, 3, 32), False), *((s, False) for s in RESIDENT_EDGES)):
@@ -5995,6 +6019,9 @@ TP_BF16_TOL = 5e-2  # (a), (b) bf16 steps: loss relative, grads max|dg| / max|g|
 TP_FP32_TOL = 1e-3  # (b) fp32 MAR rollout: max |d latent| / max |latent|
 TP_TOKEN_SHARE = 0.99  # (a) fp32 greedy rollout: least share of tokens equal to one process's
 TP_MAR_STEPS = 2  # (b) MaskGIT steps of the MAR rollout's one frame
+TP_ONE = {}  # one process's runs of (a) and (b), made once for phases 25 and 26
+SP_RANKS = 2  # phase 26: sequence-parallel ranks sharing the card
+EXCHANGE_REPS = 20  # phase 26: timed calls of each direction of the spatial exchange
 
 
 def tp_model(case, dtype, state):
@@ -6058,6 +6085,19 @@ def write_tp_cases(tmp) -> None:
     torch.cuda.empty_cache()
 
 
+def tp_one_process(tmp):
+    """One process's `tp_run` of (a) and (b), which phases 25 and 26 compare
+    their ranks with: made once a script run (the cases are seeded), and
+    the cases written to tmp for the ranks each time."""
+    import torch
+
+    write_tp_cases(tmp)
+    if not TP_ONE:
+        cases = torch.load(Path(tmp) / "tp_cases.pt", weights_only=False)
+        TP_ONE.update({case: tp_run(case, cases[case]) for case in ("d256", "d512")})
+    return TP_ONE
+
+
 def tp_run(case, spec, mesh=None):
     """Two bf16 full-grad steps of the domain-sliced AdamW on (a)'s or (b)'s
     model (split over `mesh`'s tp axis where given): the first's loss and
@@ -6066,7 +6106,7 @@ def tp_run(case, spec, mesh=None):
     held before the model was built); then the fp32 cached
     rollout. ({"loss", "grads": {name: the local grad}, "secs", "peak",
     "bytes", "counts", "rollout", "rollout_counts", "cache_heads",
-    "parts"}."""
+    "cache_sites", "parts"}."""
     import gc
 
     import torch
@@ -6131,18 +6171,20 @@ def tp_run(case, spec, mesh=None):
                                    maskgit_steps=TP_MAR_STEPS,
                                    draws={k: v.cuda() for k, v in roll["draws"].items()})[:, -1]
     torch.cuda.synchronize()
+    cache = model.init_cache(1)[0]
     out.update(rollout=got.cpu(), rollout_counts=read_counts(),
-               cache_heads=model.init_cache(1)[0].shape[-2])
+               cache_heads=cache.shape[-2], cache_sites=cache.shape[1])
     del model
     torch.cuda.empty_cache()
     return out
 
 
 def tp_worker(spec: str) -> int:
-    """A rank of phase 25: a gloo group over the card's CUDA tensors and its
-    (1, fsdp, tp, 1) mesh; with fsdp 1, (a) and (b) (`tp_run`), with fsdp 2,
-    (c): phase 23 (b)'s case split over tp and sharded by FSDP2, one step on
-    its data index's rows. Saves what it saw."""
+    """A rank of phase 25 or 26: a gloo group over the card's CUDA tensors
+    and its (1, fsdp, tp, sp) mesh (tp the rest of the world); with fsdp 1,
+    (a) and (b) (`tp_run`), under sp with the exchange's time beside them,
+    with fsdp 2, phase 25 (c): phase 23 (b)'s case split over tp and sharded
+    by FSDP2, one step on its data index's rows. Saves what it saw."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -6150,15 +6192,17 @@ def tp_worker(spec: str) -> int:
     from hma_tpu_torch.parallel.mesh import AXES, shard_model, use_mesh
     from hma_tpu_torch.train.trainer import stacked_param_mask
 
-    rank, world, port, tmp, fsdp = json.loads(spec)
+    rank, world, port, tmp, fsdp, sp = json.loads(spec)
     torch.cuda.set_device(0)  # every rank shares the one card
     torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                          world_size=world, rank=rank)
-    mesh = use_mesh(init_device_mesh("cuda", (1, fsdp, world // fsdp, 1),
+    mesh = use_mesh(init_device_mesh("cuda", (1, fsdp, world // (fsdp * sp), sp),
                                      mesh_dim_names=AXES))
     if fsdp == 1:
         cases = torch.load(Path(tmp) / "tp_cases.pt", weights_only=False)
         out = {case: tp_run(case, cases[case], mesh) for case in ("d256", "d512")}
+        if sp > 1:
+            out["exchange"] = exchange_ms(mesh)
     else:
         model, batch = load_dp_case(tmp)
         mask = stacked_param_mask(model, model.config)
@@ -6167,15 +6211,15 @@ def tp_worker(spec: str) -> int:
         loss, grads, _ = fsdp_dp_step(model, batch, mask, distributed.data_group())
         out = {"loss": loss, "grads": grads, "counts": read_counts(),
                "parts": {n: tuple(p) for n, p in model.tp_parts.items()}}
-    torch.save(out, Path(tmp) / f"tp_rank{rank}_{world}.pt")
+    torch.save(out, Path(tmp) / f"tp_rank{rank}_{world}_sp{sp}.pt")
     torch.distributed.destroy_process_group()
     return 0
 
 
-def start_tp_workers(tmp, world, fsdp):
+def start_tp_workers(tmp, world, fsdp, sp=1):
     port = free_port()
     return [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp_worker",
-                              json.dumps([r, world, port, str(tmp), fsdp])],
+                              json.dumps([r, world, port, str(tmp), fsdp, sp])],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
 
@@ -6212,6 +6256,21 @@ def worst_part(grads, want, parts, rank, world, slices=None):
     return worst, where
 
 
+def split_launches(rank) -> dict:
+    """A phase-25 or phase-26 rank's K1'/K2' launches by phase-3 record:
+    each runs on H 4 of the 8 heads a rank (after tp's split, or sp's
+    exchange at sp 2), at (a)'s step (B 8 x T 12 frames of 320 tokens, D
+    32), (b)'s (of 128 tokens, D 64), (a)'s cached rollout (B 8 a frame)
+    and (b)'s (B 2)."""
+    a, b = rank["d256"], rank["d512"]
+    return {("K1'", (96, 320, 4, 32)): a["counts"]["K1'"],
+            ("K2'", (96, 320, 4, 32)): a["counts"]["K2'"],
+            ("K1'", (96, 128, 4, 64)): b["counts"]["K1'"],
+            ("K2'", (96, 128, 4, 64)): b["counts"]["K2'"],
+            ("K1'", (8, 320, 4, 32)): a["rollout_counts"]["K1'"],
+            ("K1'", (2, 128, 4, 64)): b["rollout_counts"]["K1'"]}
+
+
 def tp_phase(records):
     """Phase 25: (a) and (b) on two tp ranks, (c) on four (fsdp 2, tp 2)
     ranks, each against one process."""
@@ -6221,14 +6280,13 @@ def tp_phase(records):
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        write_tp_cases(tmp)
+        one = tp_one_process(tmp)
         write_dp_case(tmp)
-        cases = torch.load(tmp / "tp_cases.pt", weights_only=False)
-        one = {case: tp_run(case, cases[case]) for case in ("d256", "d512")}
         t0 = time.perf_counter()
         wait_workers(start_tp_workers(tmp, 2, 1), "tp 2")
         secs = time.perf_counter() - t0
-        ranks = [torch.load(tmp / f"tp_rank{r}_2.pt", weights_only=False) for r in range(2)]
+        ranks = [torch.load(tmp / f"tp_rank{r}_2_sp1.pt", weights_only=False)
+                 for r in range(2)]
         for case, label in (("d256", f"d256 at {TP_LAYERS['d256']} layers, K1'-K4'"),
                             ("d512", f"d512 STMAR at {TP_LAYERS['d512']} layers, resident, "
                                      "K5'")):
@@ -6267,10 +6325,9 @@ def tp_phase(records):
                     require(got["rollout_counts"]["K6'"] > 0 and got["rollout_counts"]["K1'"] > 0,
                             "tp 2 MAR rollout missed K1' or K6'")
         print(f"  tp 2: both ranks, (a) and (b), {secs:.1f} s", flush=True)
+        set_launches(records, split_launches(ranks[0]))
         c = ranks[0]["d256"]["counts"]
-        set_launches(records, {("K1'", (96, 320, 4, 32)): c["K1'"],
-                               ("K2'", (96, 320, 4, 32)): c["K2'"],
-                               ("K3'", (2560, 12, 4, 32)): c["K3'"],
+        set_launches(records, {("K3'", (2560, 12, 4, 32)): c["K3'"],
                                ("K4'", (2560, 12, 4, 32)): c["K4'"]})
         c = ranks[0]["d512"]["counts"]
         set_launches(records, {("K5' fwd", (8, 12, 128, 4, 64)): c["K5' fwd"],
@@ -6284,7 +6341,8 @@ def tp_phase(records):
         t0 = time.perf_counter()
         wait_workers(start_tp_workers(tmp, 4, 2), "(fsdp 2, tp 2)")
         secs = time.perf_counter() - t0
-        ranks = [torch.load(tmp / f"tp_rank{r}_4.pt", weights_only=False) for r in range(4)]
+        ranks = [torch.load(tmp / f"tp_rank{r}_4_sp1.pt", weights_only=False)
+                 for r in range(4)]
         for r, got in enumerate(ranks):
             loss_err = abs(got["loss"] - loss) / abs(loss)
             worst, where = worst_part({n: g for n, (g, _) in got["grads"].items()}, grads,
@@ -6301,13 +6359,111 @@ def tp_phase(records):
         print(f"  (fsdp 2, tp 2): four ranks {secs:.1f} s", flush=True)
 
 
+def exchange_ms(mesh) -> dict:
+    """Phase 26: this rank's time for the spatial attention's exchange at
+    (a)'s step shapes (the d256 card, B 8: B T = 96 frames, 8 heads of 32):
+    `tokens_to_heads` of q, k, v stacked (96, 320 / sp, 3, 8, 32) bf16, then
+    `heads_to_tokens` of the (96, 320, 1, 8 / sp, 32) output, each over
+    EXCHANGE_REPS calls after one, on the host's clock with the card
+    synchronised (a gloo all-to-all of CUDA tensors goes through the host)."""
+    import torch
+
+    from hma_tpu_torch.parallel import sequence_parallel as seqp
+    from hma_tpu_torch.parallel.mesh import sp_group
+    from hma_tpu_torch.parallel.tensor_parallel import group_of
+
+    sp = group_of(sp_group(mesh))
+    cfg = flagship_config(40)
+    S_tot, H = cfg.S + cfg.action_token_size, cfg.num_heads
+    D, BT = cfg.d_model // H, 8 * cfg.T
+    x = torch.randn(BT, S_tot // sp.size, 3, H, D, device="cuda", dtype=torch.bfloat16)
+    y = torch.randn(BT, S_tot, 1, H // sp.size, D, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for name, fn, arg in (("tokens_to_heads", seqp.tokens_to_heads, x),
+                          ("heads_to_tokens", seqp.heads_to_tokens, y)):
+        fn(arg, sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXCHANGE_REPS):
+            fn(arg, sp)
+        torch.cuda.synchronize()
+        out[name] = ((time.perf_counter() - t0) / EXCHANGE_REPS * 1e3, arg.numel() * 2)
+    return out
+
+
+def sp_phase(records):
+    """Phase 26: (a) and (b) of phase 25 on two sp ranks, each rank's trunk
+    on its half of every frame's tokens, against one process; the
+    exchange's time."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        one = tp_one_process(tmp)
+        t0 = time.perf_counter()
+        wait_workers(start_tp_workers(tmp, SP_RANKS, 1, SP_RANKS), f"sp {SP_RANKS}")
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"tp_rank{r}_{SP_RANKS}_sp{SP_RANKS}.pt", weights_only=False)
+                 for r in range(SP_RANKS)]
+    for case, label in (("d256", f"d256 at {TP_LAYERS['d256']} layers, K1'-K4'"),
+                        ("d512", f"d512 STMAR at {TP_LAYERS['d512']} layers, resident, K5'")):
+        want = one[case]
+        for r, got in enumerate(g[case] for g in ranks):
+            loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            worst, where = worst_part(got["grads"], want["grads"], {}, r, SP_RANKS)
+            print(f"  sp {SP_RANKS} rank {r}, {label}, B 8, bf16 step: loss {got['loss']:.6f} "
+                  f"against 1 process {want['loss']:.6f} (rel err {loss_err:.3e}); "
+                  f"{len(got['grads'])} grads, worst max|dg|/max|g| {worst:.3e} at {where} "
+                  f"(tol {TP_BF16_TOL}); step {got['secs']:.3f} s (1 process "
+                  f"{want['secs']:.3f} s); parameter / moment bytes {got['bytes']} (1 process "
+                  f"{want['bytes']}); peak memory {got['peak'] / 1e9:.2f} GB (1 process "
+                  f"{want['peak'] / 1e9:.2f} GB); launches {got['counts']} (1 process "
+                  f"{want['counts']}); cache sites of a row {got['cache_sites']} (1 process "
+                  f"{want['cache_sites']}), heads {got['cache_heads']}", flush=True)
+            require(loss_err <= TP_BF16_TOL, f"sp {case}: loss differs")
+            require(worst <= TP_BF16_TOL, f"sp {case}: grad {where} differs: {worst:.3e}")
+            require(got["counts"] == want["counts"], f"sp {case}: launches differ")
+            require(got["cache_sites"] * SP_RANKS == want["cache_sites"]
+                    and got["cache_heads"] == want["cache_heads"],
+                    f"sp {case}: caches of {got['cache_sites']} sites, {got['cache_heads']} heads")
+            if case == "d256":
+                share = (got["rollout"] == want["rollout"]).float().mean().item()
+                print(f"  sp {SP_RANKS} rank {r}, d256 fp32 cached rollout, B 8, 2 greedy "
+                      f"frames after 10: tokens equal to 1 process's {share:.5f} (least "
+                      f"{TP_TOKEN_SHARE}); launches {got['rollout_counts']}", flush=True)
+                require(share >= TP_TOKEN_SHARE, "sp d256 rollout tokens differ")
+                require(got["rollout_counts"]["K1'"] > 0, "sp rollout missed K1'")
+            else:
+                err = ((got["rollout"] - want["rollout"]).abs().max()
+                       / want["rollout"].abs().max()).item()
+                print(f"  sp {SP_RANKS} rank {r}, d512 STMAR fp32 cached MAR rollout, B 2, "
+                      f"one frame, {TP_MAR_STEPS} MaskGIT steps, handed-in draws, K6' on the "
+                      f"gathered rows: max|d|/max|x| {err:.3e} (tol {TP_FP32_TOL}); launches "
+                      f"{got['rollout_counts']}", flush=True)
+                require(err <= TP_FP32_TOL, "sp MAR rollout differs")
+                require(got["rollout_counts"]["K6'"] > 0 and got["rollout_counts"]["K1'"] > 0,
+                        "sp MAR rollout missed K1' or K6'")
+    for r, got in enumerate(ranks):
+        print(f"  sp {SP_RANKS} rank {r}, the spatial exchange at (a)'s shapes, "
+              + "; ".join(f"{name} {ms:.3f} ms ({n / 1e6:.1f} MB)"
+                          for name, (ms, n) in got["exchange"].items()), flush=True)
+    print(f"  sp {SP_RANKS}: both ranks, (a) and (b), {secs:.1f} s", flush=True)
+    set_launches(records, split_launches(ranks[0]), add=True)
+    c = ranks[0]["d256"]["counts"]
+    set_launches(records, {("K3'", (1280, 12, 8, 32)): c["K3'"],
+                           ("K4'", (1280, 12, 8, 32)): c["K4'"]})
+    c = ranks[0]["d512"]["counts"]
+    set_launches(records, {("K5' fwd", (8, 12, 64, 8, 64)): c["K5' fwd"],
+                           ("K5' bwd", (8, 12, 64, 8, 64)): c["K5' bwd"]})
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 26)),
+    p.add_argument("--phases", default=",".join(str(i) for i in range(1, 27)),
                    help="comma-separated phases to run (1 and 2 always run)")
     p.add_argument("--dp_worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--fsdp_worker", default=None, help=argparse.SUPPRESS)
@@ -6326,7 +6482,7 @@ def main(argv=None) -> int:
         return dp_worker(args.dp_worker)
     if args.fsdp_worker:  # a rank of phase 24 (b)
         return fsdp_worker(args.fsdp_worker)
-    if args.tp_worker:  # a rank of phase 25
+    if args.tp_worker:  # a rank of phase 25 or 26
         return tp_worker(args.tp_worker)
     if args.sliced_profile:
         return sliced_profile(args.profile_dir)
@@ -6398,7 +6554,12 @@ def main(argv=None) -> int:
              (25, "tp: tp 2 on 2 gloo ranks (d256 step at H 4 and its cached rollout; d512 "
                   "STMAR resident step, K5' at H 4, and its cached MAR rollout, K6' on the "
                   "gathered head); (fsdp 2, tp 2) on 4 ranks; each against 1 process",
-              lambda: tp_phase(records))]
+              lambda: tp_phase(records)),
+             (26, "sp: sp 2 on 2 gloo ranks (d256 step, K1'/K2' on whole frames of H 4 "
+                  "after the all-to-all, K3'/K4' on a rank's 1280 sites, and its cached "
+                  "rollout; d512 STMAR resident step, K5' on a rank's 64 tokens, and its "
+                  "cached MAR rollout); each against 1 process; the exchange's time",
+              lambda: sp_phase(records))]
     for n, title, run in steps:
         if n in phases:
             t0 = time.perf_counter()
@@ -6406,7 +6567,8 @@ def main(argv=None) -> int:
             run()
             print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if {3, 4, 6, 9, 11, 14, 15, 18, 25} <= phases:  # every kernel of the main paths was launched
+    # every kernel of the main paths was launched
+    if {3, 4, 6, 9, 11, 14, 15, 18, 25, 26} <= phases:
         for r in records:
             require(r["launches"], f"{r['name']} {r['shape']} never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -29,10 +29,11 @@ batch's draws (`--seed`), so that N processes give what one gives; the token met
 the global batch's, the pixel metrics and gen_time the mean over the
 processes, and process 0 writes. With `--fsdp` above 1 the model's
 parameters are sharded over the processes by FSDP2, by the training rules;
-with `--tp` above 1 its heads and MLP features are split over the tp ranks,
-which share their rows and draws (the world is dp * fsdp * tp processes,
-the batch split over dp * fsdp). Not ported yet, and raising when asked
-for: `--use_wandb` (ROADMAP.md Queue A, item 11) and `--sp` > 1 (item 10c).
+with `--tp` above 1 its heads and MLP features are split over the tp ranks
+and with `--sp` above 1 every frame's tokens over the sp ranks, which share
+their rows and draws (the world is dp * fsdp * tp * sp processes, the batch
+split over dp * fsdp). Not ported yet, and raising when asked for:
+`--use_wandb` (ROADMAP.md Queue A, item 11).
 """
 
 from __future__ import annotations

@@ -26,9 +26,10 @@ batch's, the FID/FVD pass gathers every process's rows, gen_time is the
 mean over the processes, and process 0 writes. With `--fsdp` above 1 the
 model's parameters are sharded over the processes by FSDP2, by the
 training rules; with `--tp` above 1 its heads and MLP features are split
-over the tp ranks, which share their rows and draws (the diffusion head is
-gathered whole on each). `--use_wandb` (ROADMAP.md Queue A, item 11) and
-`--sp` > 1 (item 10c) raise.
+over the tp ranks (the diffusion head is gathered whole on each), with
+`--sp` above 1 every frame's tokens over the sp ranks (the head sees whole
+frames); the ranks of a tp or sp group share their rows and draws.
+`--use_wandb` (ROADMAP.md Queue A, item 11) raises.
 """
 
 from __future__ import annotations

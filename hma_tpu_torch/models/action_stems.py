@@ -12,6 +12,10 @@ Under tensor parallelism (`parallel.tensor_parallel.split_model`) a
 stem gathers its features around its LayerNorm, the modulation its hidden
 features between `ada_fc1` and `ada_fc2` and takes the rank's shift and
 scale, and the cross-attention runs on the rank's 8 / tp heads.
+
+Under sequence parallelism every module here runs per token on the rank's
+tokens; the cross-attention's compat="reference" row pairing reads each
+query's global token index.
 """
 
 from __future__ import annotations
@@ -221,7 +225,7 @@ class DomainCrossAttention(nn.Module):
         self.qk_ln_scale = nn.Parameter(torch.ones(num_domains, self.head_dim, device=device))
         self.qk_ln_bias = nn.Parameter(torch.zeros(num_domains, self.head_dim, device=device))
         self.proj = DomainDense(num_domains, d_model, d_model, dtype=dtype, device=device)
-        self.tp = None
+        self.tp = self.sp = None
 
     def enable_tp(self, tp) -> None:
         """to_q/to_k/to_v column-split by head (their outputs are (H, D), so
@@ -236,6 +240,11 @@ class DomainCrossAttention(nn.Module):
         if self.compat == "fixed":
             self.num_heads //= tp.size
 
+    def enable_sp(self, sp) -> None:
+        """q holds the rank's tokens of every frame: the compat="reference"
+        pairing counts them from its first token's global index."""
+        self.sp = sp
+
     def _ln(self, u: torch.Tensor, domain_id: int) -> torch.Tensor:
         scale, bias = (tpar.copy(p, None if self.compat == "reference" else self.tp)
                        for p in (self.qk_ln_scale, self.qk_ln_bias))
@@ -246,8 +255,9 @@ class DomainCrossAttention(nn.Module):
         H, D = self.num_heads, self.head_dim
         if self.compat == "reference":
             B, S, T, C = q.shape
-            rows = (torch.arange(B, device=q.device)[:, None] * S
-                    + torch.arange(S, device=q.device)[None, :]) % B
+            ranks, rank = (1, 0) if self.sp is None else (self.sp.size, self.sp.rank)
+            s = rank * S + torch.arange(S, device=q.device)  # the global token index
+            rows = (torch.arange(B, device=q.device)[:, None] * S * ranks + s[None, :]) % B
             kvp = kv[:, :T][rows]  # (B, S, T, C)
             qh, kh, vh = (tpar.gather(f(x, domain_id), self.tp).view(B, S, T, H, D)
                           for f, x in ((self.to_q, q), (self.to_k, kvp), (self.to_v, kvp)))

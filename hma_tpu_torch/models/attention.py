@@ -31,6 +31,13 @@ the bias added once after; "whole": the weight gathered) and
 in (3, H / tp, D) order, K1'-K5' and the decode paths take them as they
 take all heads in one process, and `proj` is row-split.
 
+Under sequence parallelism (`parallel.sequence_parallel.enable`) x holds
+the rank's tokens of each frame: the spatial pass sends q, k, v of its
+tokens and all of its heads through `tokens_to_heads` (an all-to-all) to
+every token of H / sp heads, runs K1'/K2' there, and `heads_to_tokens`
+brings the output back before `proj`; the causal passes are per site and
+need no exchange.
+
 `CrossAttention` is not ported yet. `attn_drop` is not
 an argument: `hma_tpu`'s attention builds its dropout and never calls it, a
 quirk of the reference, so it is a no-op there.
@@ -49,6 +56,7 @@ from hma_tpu_torch.ops.temporal_attention import (
     FusedTemporalAttention,
     FusedTemporalResident,
 )
+from hma_tpu_torch.parallel import sequence_parallel as seqp
 from hma_tpu_torch.parallel import tensor_parallel as tpar
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # the decode paths' mask value
@@ -150,6 +158,7 @@ class SelfAttention(nn.Module):
         self.qkv = Dense(d_model, 3 * d_model, qkv_bias, dtype, device)
         self.proj = Dense(d_model, d_model, proj_bias, dtype, device)
         self.norm = LayerNorm(self.head_dim, device=device) if qk_norm else None
+        self.sp = None
 
     def enable_tp(self, tp) -> None:
         """Run on this rank's H / tp heads (`tensor_parallel.split_model`
@@ -163,6 +172,14 @@ class SelfAttention(nn.Module):
         if self.norm is not None:
             self.norm.tp = tp
 
+    def enable_sp(self, sp) -> None:
+        """Take the rank's tokens: the spatial pass exchanges them for whole
+        frames of H / sp of this rank's heads (after tp's split)."""
+        if self.num_heads % sp.size:
+            raise NotImplementedError(
+                f"sp {sp.size} does not divide the {self.num_heads} heads a rank attends with")
+        self.sp = sp
+
     def _qkv(self, x: torch.Tensor):
         B, N, _ = x.shape
         qkv = self.qkv(x).view(B, N, 3, self.num_heads, self.head_dim)
@@ -173,13 +190,18 @@ class SelfAttention(nn.Module):
         return q * self.scale, k, v
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        """Full pass over x: (B, N, C); causal runs K3'/K4', otherwise K1'/K2'."""
+        """Full pass over x: (B, N, C); causal runs K3'/K4', otherwise K1'/K2'
+        (under sp on whole frames of H / sp heads, between the exchanges)."""
         B, N, _ = x.shape
         q, k, v = self._qkv(x)
         if causal:
             out = FusedTemporalAttention.apply(q, k, v)
-        else:
+        elif self.sp is None:
             out = FusedAttention.apply(q, k, v, False)
+        else:
+            q, k, v = seqp.tokens_to_heads(torch.stack([q, k, v], 2), self.sp).unbind(2)
+            out = FusedAttention.apply(q, k, v, False)
+            out = seqp.heads_to_tokens(out[:, :, None], self.sp)[:, :, 0]
         return self.proj(out.reshape(B, N, -1))
 
     def temporal_resident(self, x_BTSC: torch.Tensor) -> torch.Tensor:

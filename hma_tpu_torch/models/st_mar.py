@@ -40,6 +40,7 @@ from hma_tpu_torch.models.attention import Dense, LayerNorm
 from hma_tpu_torch.models.diffloss import DiffLoss
 from hma_tpu_torch.models.st_transformer import STTransformerDecoder
 from hma_tpu_torch.parallel.distributed import draw_rows
+from hma_tpu_torch.parallel.sequence_parallel import local_count
 
 
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -279,14 +280,16 @@ class STMAR(nn.Module):
     # ------------------------------------------------------------------
 
     def init_cache(self, batch_size: int, with_actions: bool = True):
-        """Zeroed temporal KV caches, (L, B*S_tot, T, H, Dh) each."""
+        """Zeroed temporal KV caches, (L, B*S_tot, T, H, Dh) each (a rank's
+        S_tot / sp sites of each row under sp, its H / tp heads under tp)."""
         cfg = self.config
         concat = (with_actions and "concat" in cfg.action_network
                   and cfg.num_domains > 0) or cfg.jointly_predict_actions
         S_tot = self.seq_len + (cfg.action_token_size if concat else 0)
         # the heads this rank attends with (H / tp under tensor parallelism)
         heads = self.decoder.layers[0].temporal_attn.num_heads
-        shape = (cfg.num_layers, batch_size * S_tot, cfg.T, heads,
+        sites = batch_size * local_count(S_tot, self.decoder.sp)
+        shape = (cfg.num_layers, sites, cfg.T, heads,
                  cfg.d_model // cfg.num_heads)
         device = self.pos_embed_TSC.device
         return (torch.zeros(shape, dtype=self.dtype, device=device),

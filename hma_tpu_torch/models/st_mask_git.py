@@ -39,6 +39,7 @@ from hma_tpu_torch.models.attention import Dense
 from hma_tpu_torch.models.factorization import FactorizedEmbedding, factorize_labels
 from hma_tpu_torch.models.st_transformer import STTransformerDecoder
 from hma_tpu_torch.parallel.distributed import draw_rows, global_count
+from hma_tpu_torch.parallel.sequence_parallel import local_count
 
 LABEL_SMOOTHING = 0.01
 
@@ -273,7 +274,9 @@ class STMaskGIT(nn.Module):
     def init_cache(self, batch_size: int, with_actions: bool = True):
         """Zeroed temporal KV caches, (L, B*S_tot, T, H, Dh) each; S_tot
         counts the action tokens of a concat card given actions and of every
-        joint card (which appends its mask tokens without actions)."""
+        joint card (which appends its mask tokens without actions). Under
+        sp a rank's caches hold its S_tot / sp sites of each row, under tp
+        its H / tp heads."""
         cfg = self.config
         concat = (with_actions and "concat" in cfg.action_network
                   and cfg.num_domains > 0)
@@ -281,7 +284,8 @@ class STMaskGIT(nn.Module):
         S_tot = cfg.S + (cfg.action_token_size if tokens else 0)
         # the heads this rank attends with (H / tp under tensor parallelism)
         heads = self.decoder.layers[0].temporal_attn.num_heads
-        shape = (cfg.num_layers, batch_size * S_tot, cfg.T, heads,
+        sites = batch_size * local_count(S_tot, self.decoder.sp)
+        shape = (cfg.num_layers, sites, cfg.T, heads,
                  cfg.d_model // cfg.num_heads)
         device = self.pos_embed_TSC.device
         return (torch.zeros(shape, dtype=self.dtype, device=device),

@@ -34,6 +34,15 @@ them; the MLP's fc1 is column-split and fc2 row-split, and its hidden
 dropout mask is drawn at the whole hidden width (what one process draws)
 and sliced to the rank's features.
 
+Under sequence parallelism (`parallel.sequence_parallel.enable`) the
+decoder keeps the rank's contiguous chunk of every frame's tokens before
+the first block and joins the ranks' outputs after the last, in the full
+forward and in both cached steps; the blocks run on the chunk (spatial
+attention through the all-to-all of `SelfAttention`, the temporal passes on
+the rank's sites, whose KV caches they hold). The MLP's dropout masks are
+drawn at the whole frame's shape and cut to the rank's tokens of each
+batch row.
+
 With `qk_norm=True`, norm1/norm2 are Identity, a quirk kept from the
 reference: the only normalisation is the qk-LayerNorm inside attention.
 """
@@ -49,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from hma_tpu_torch.models.action_stems import DomainCrossAttention, DomainModulate
 from hma_tpu_torch.models.attention import Dense, LayerNorm, SelfAttention
+from hma_tpu_torch.parallel import sequence_parallel as seqp
 from hma_tpu_torch.parallel import tensor_parallel as tpar
 from hma_tpu_torch.parallel.distributed import RankRows, draw_rows, source
 
@@ -76,31 +86,42 @@ class Mlp(nn.Module):
         self.mlp_drop = mlp_drop
         self.fc1 = Dense(d_model, self.hidden, mlp_bias, dtype, device)
         self.fc2 = Dense(self.hidden, d_model, mlp_bias, dtype, device)
-        self.tp = None
+        self.tp = self.sp = None
 
     def enable_tp(self, tp) -> None:
         """fc1 column-split, fc2 row-split: the rank's hidden features."""
         if tpar.split_mode(self.fc1, self.fc2):
             self.tp = tp
 
-    def forward(self, x: torch.Tensor, dropout: BlockDropout = None) -> torch.Tensor:
+    def enable_sp(self, sp) -> None:
+        """x holds the rank's tokens: the masks are cut to them."""
+        self.sp = sp
+
+    def forward(self, x: torch.Tensor, dropout: BlockDropout = None,
+                tokens: int = 1) -> torch.Tensor:
         """`dropout`: see `BlockDropout`; ignored when mlp_drop is 0. The
-        hidden mask is the whole hidden width's (drawn or given), sliced to
-        the rank's features under tp."""
+        masks are laid out as x's leading dimensions (given masks of the
+        same elements are reshaped to them); under sp they are the whole
+        frame's (drawn or given), `tokens` being the dimension of x that
+        holds the rank's tokens, and are cut to them. The hidden mask is the
+        whole hidden width's, sliced to the rank's features under tp."""
         h = F.gelu(self.fc1(x), approximate="none")
         if dropout is None or self.mlp_drop == 0.0:
             return self.fc2(h)
         keep = 1.0 - self.mlp_drop
+        lead = list(h.shape[:-1])
+        if self.sp is not None:
+            lead[tokens] *= self.sp.size
         if isinstance(source(dropout), int):
             g = torch.Generator(x.device).manual_seed(source(dropout))
             if isinstance(dropout, RankRows):
                 g = dropout._replace(source=g)
             masks = [draw_rows(lambda m, g, s=shape: torch.rand(
                          (m, *s[1:]), generator=g, device=x.device), shape[0], g) < keep
-                     for shape in ((*h.shape[:-1], self.hidden),
-                                   (*h.shape[:-1], self.fc2.out_features))]
+                     for shape in ((*lead, self.hidden), (*lead, self.fc2.out_features))]
         else:
-            masks = list(dropout)
+            masks = [m.reshape(*lead, m.shape[-1]) for m in dropout]
+        masks = [seqp.split_tokens(m, self.sp, tokens) for m in masks]
         if self.tp is not None and masks[0].shape[-1] == self.hidden:
             masks[0] = tpar.rank_slice(masks[0], self.tp, masks[0].ndim - 1)
         return _dropout(self.fc2(_dropout(h, keep, masks[0])), keep, masks[1])
@@ -176,8 +197,8 @@ class STBlock(nn.Module):
                 domain_id: int = 0, dropout: BlockDropout = None) -> torch.Tensor:
         """Full forward. x_TSC: (B, T, S, C); action_emb: (B, T, C);
         dropout: the MLP's (`BlockDropout`), masks shaped like its hidden and
-        output activations in this block's layout: (B*S, T, .) for
-        "transpose", (B, T, S, .) for "resident"."""
+        output activations in this block's layout: (B, S, T, .) (or
+        (B*S, T, .)) for "transpose", (B, T, S, .) for "resident"."""
         B, T, S, C = x_TSC.shape
         x_SC = x_TSC.reshape(B * T, S, C)
         x_SC = x_SC + self.spatial_attn(self._pre(self.norm1, x_SC))
@@ -189,7 +210,7 @@ class STBlock(nn.Module):
                         f"temporal_layout='resident' with {self.action_processing}")
                 x = self._inject(x, action_emb[:, :T, None], domain_id)
             x = x + self.temporal_attn.temporal_resident(x)
-            return x + self.mlp(self._pre(self.norm2, x), dropout)
+            return x + self.mlp(self._pre(self.norm2, x), dropout, tokens=2)
         x_BSTC = x_SC.reshape(B, T, S, C).transpose(1, 2)  # (B, S, T, C)
         if action_emb is not None and self.cross:
             if self.action_projector.compat == "reference":
@@ -201,9 +222,9 @@ class STBlock(nn.Module):
         elif action_emb is not None and self.inject:
             x_BSTC = self._inject(x_BSTC, action_emb[:, None, :T], domain_id)
         x_TC = x_BSTC.reshape(B * S, T, C)
-        x_TC = x_TC + self.temporal_attn(x_TC, causal=True)
-        x_TC = x_TC + self.mlp(self._pre(self.norm2, x_TC), dropout)
-        return x_TC.reshape(B, S, T, C).transpose(1, 2)
+        x_BSTC = (x_TC + self.temporal_attn(x_TC, causal=True)).view(B, S, T, C)
+        x_BSTC = x_BSTC + self.mlp(self._pre(self.norm2, x_BSTC), dropout, tokens=1)
+        return x_BSTC.transpose(1, 2)
 
     def frame_step(self, x_SC: torch.Tensor, t: int, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
@@ -275,6 +296,12 @@ class STTransformerDecoder(nn.Module):
                 "(ROADMAP.md Queue A)")
         self.remat = remat
         self.layers = nn.ModuleList(STBlock(**block_kw) for _ in range(num_layers))
+        self.sp = None
+
+    def enable_sp(self, sp) -> None:
+        """Run the blocks on the rank's tokens of every frame (see the
+        module docstring)."""
+        self.sp = sp
 
     def forward(self, x_TSC: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
                 domain_id: int = 0,
@@ -284,6 +311,7 @@ class STTransformerDecoder(nn.Module):
         (one seed per block is drawn from it, on its device, before the
         blocks run) or one `BlockDropout` per block."""
         remat = self.remat and torch.is_grad_enabled()
+        x_TSC = seqp.split_tokens(x_TSC, self.sp, 2)
         if isinstance(source(dropout), torch.Generator):
             g = source(dropout)
             seeds = torch.randint(0, 2**62, (len(self.layers),), generator=g,
@@ -297,39 +325,43 @@ class STTransformerDecoder(nn.Module):
                                    use_reentrant=False, preserve_rng_state=False)
             else:
                 x_TSC = layer(x_TSC, action_emb, domain_id, drop)
-        return x_TSC
+        return seqp.gather_tokens(x_TSC, self.sp, 2)
 
     def frame_step(self, x_SC: torch.Tensor, t: int, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
                    domain_id: int = 0, update_cache: bool = True,
                    action_live: Optional[torch.Tensor] = None):
-        """x_SC: (B, S, C); k/v_cache: (L, B*S, T_max, H, D); action_live:
-        optional (B,) gate on each layer's action injection.
+        """x_SC: (B, S, C); k/v_cache: (L, B*S, T_max, H, D) (B*S/sp sites
+        under sp: the rank's tokens of each row); action_live: optional (B,)
+        gate on each layer's action injection.
 
         With update_cache, each layer's frame-t KV slice is written in place
         into slot t of the caches; otherwise the caches are not touched.
         Returns (x_SC, k_cache, v_cache), the caches being the same tensors.
         """
+        x_SC = seqp.split_tokens(x_SC, self.sp, 1)
         for i, layer in enumerate(self.layers):
             x_SC, k_t, v_t = layer.frame_step(x_SC, t, k_cache[i], v_cache[i],
                                               action_emb, domain_id, action_live)
             if update_cache:
                 k_cache[i, :, t] = k_t[:, 0]
                 v_cache[i, :, t] = v_t[:, 0]
-        return x_SC, k_cache, v_cache
+        return seqp.gather_tokens(x_SC, self.sp, 1), k_cache, v_cache
 
     def window_step(self, x_FSC: torch.Tensor, t0: int, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, action_emb: Optional[torch.Tensor] = None,
                     domain_id: int = 0, write_frames: int = 0):
         """x_FSC: (B, F, S, C) for the frames [t0, t0+F); k/v_cache: (L, B*S,
-        T_max, H, D). The first `write_frames` frames' KV slices are written
-        in place into slots [t0, t0+write_frames) of the caches, layer by
-        layer; with 0 the caches are not touched. Returns (x_FSC, k_cache,
-        v_cache), the caches being the same tensors."""
+        T_max, H, D) (B*S/sp sites under sp). The first `write_frames`
+        frames' KV slices are written in place into slots [t0,
+        t0+write_frames) of the caches, layer by layer; with 0 the caches are
+        not touched. Returns (x_FSC, k_cache, v_cache), the caches being the
+        same tensors."""
+        x_FSC = seqp.split_tokens(x_FSC, self.sp, 2)
         for i, layer in enumerate(self.layers):
             x_FSC, k_w, v_w = layer.window_step(x_FSC, t0, k_cache[i], v_cache[i],
                                                 action_emb, domain_id)
             if write_frames > 0:
                 k_cache[i, :, t0:t0 + write_frames] = k_w[:, :write_frames]
                 v_cache[i, :, t0:t0 + write_frames] = v_w[:, :write_frames]
-        return x_FSC, k_cache, v_cache
+        return seqp.gather_tokens(x_FSC, self.sp, 2), k_cache, v_cache

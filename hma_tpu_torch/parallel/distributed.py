@@ -8,7 +8,7 @@ random draws (`rank_rows`, `draw_rows`), and the train and eval steps sum
 their gradients, loss denominators and metrics over the group. The group
 is the mesh's data axes ("dp" and "fsdp" flattened, `mesh.data_group`),
 and a process's share goes by its data index, not its process index: the
-ranks of one tp group (`mesh.use_mesh` registers tp * sp as the model-
+ranks of one tp or sp group (`mesh.use_mesh` registers tp * sp as the model-
 parallel factor) load the same rows and draw the same masks, dropout,
 diffusion noise and rollout samples, so their replicated activations stay
 equal. With tp and sp at 1 the data index is the process index.
@@ -155,7 +155,7 @@ def local_device(device=None) -> torch.device:
 def local_slice(global_indices: np.ndarray) -> np.ndarray:
     """This process's contiguous share of a global batch's indices: all
     processes run the same seeded sampler, and each loads 1 / data_count
-    of every batch, by its data index (the ranks of a tp group the same)."""
+    of every batch, by its data index (the ranks of a tp or sp group the same)."""
     n = data_count()
     if n == 1:
         return global_indices
@@ -263,7 +263,7 @@ def broadcast_(tensors: list, src: int = 0, group=None) -> None:
 
 def gather_rows(x: np.ndarray) -> np.ndarray:
     """Every data index's rows of equal-size shards, concatenated in data
-    order (each row once, whatever tp is); with one data index, `x`."""
+    order (each row once, whatever tp and sp are); with one data index, `x`."""
     if data_count() == 1:
         return x
     group = data_group()

@@ -16,16 +16,18 @@ gradients over both axes.
 
 Under "tp" (`tensor_parallel.split_model`, `tp_dim`) the attention heads
 and the MLP features are split over the tp ranks Megatron-style, each rank
-holding its part of every split parameter as a plain tensor, and the ranks
-of one tp group share their data index: they load the same rows and draw
-the same masks and noise (`distributed.data_index`). `shard_model` composes
-the two: tp-local parameters first, then FSDP2 over "fsdp" on each tp
-rank's local tensors. The mesh's rank order is (dp, fsdp, tp, sp)
+holding its part of every split parameter as a plain tensor. Under "sp"
+(`sequence_parallel.enable`) the model's trunk runs on the rank's tokens of
+every frame, its spatial attention through an all-to-all to whole frames
+of H / sp heads, and the parameters stay whole. The ranks of one tp or sp
+group share their data index: they load the same rows and draw the same
+masks and noise (`distributed.data_index`). `shard_model` composes them:
+tp-local parameters first, sp on the trunk, then FSDP2 over "fsdp" on each
+tp rank's local tensors. The mesh's rank order is (dp, fsdp, tp, sp)
 row-major, as `hma_tpu`'s devices are.
 
-sp is ROADMAP.md Queue A item 10c (sp); asking for it raises. Where
-`hma_tpu` builds a mesh over a subset of the devices when the factors ask
-for fewer, the port raises: the factors must fill the world exactly.
+Where `hma_tpu` builds a mesh over a subset of the devices when the factors
+ask for fewer, the port raises: the factors must fill the world exactly.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ from torch.distributed.tensor import DTensor, Shard
 from hma_tpu_torch.parallel import distributed
 
 AXES = ("dp", "fsdp", "tp", "sp")
-UNPORTED = "not ported yet: sp is ROADMAP.md Queue A item 10c (sp)"
 FSDP_MIN_SIZE = 2**16  # `hma_tpu`'s param_spec shards parameters of this many elements up
 # hma_tpu's param_spec: the layers whose output features split over "tp"
 # (kernel (..., in, out) on its last dimension), those whose input features
@@ -59,11 +60,8 @@ def check_factors(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
                   sp: int = 1, world: Optional[int] = None) -> int:
     """The dp degree of (dp, fsdp, tp, sp) over `world` ranks (default: the
     process group's): dp defaults to world // (fsdp * tp * sp), as in
-    `hma_tpu`. Raises for sp above 1 and for factors that ask for more or
-    fewer ranks than there are (fsdp or tp above 1 in one process among
-    them)."""
-    if sp > 1:
-        raise NotImplementedError(f"--sp {sp}: {UNPORTED}")
+    `hma_tpu`. Raises for factors that ask for more or fewer ranks than
+    there are (fsdp, tp or sp above 1 in one process among them)."""
     world = distributed.process_count() if world is None else world
     dp = world // (fsdp * tp * sp) if dp is None else dp
     if dp < 1 or dp * fsdp * tp * sp != world:
@@ -111,10 +109,25 @@ def tp_group(mesh: DeviceMesh):
     return mesh["tp"].get_group()
 
 
+def sp_group(mesh: DeviceMesh):
+    """The process group of the mesh's "sp" axis: the ranks that share this
+    rank's data index and tp index and split its tokens."""
+    return mesh["sp"].get_group()
+
+
+def grad_group(mesh: DeviceMesh):
+    """The process group of the data and sp axes ("dp", "fsdp", "sp")
+    flattened: the ranks that share this rank's tp index, over which one sum
+    gives a model that FSDP2 does not shard, under sp, one process's
+    gradients (`sequence_parallel`)."""
+    if not hasattr(mesh, "_hma_grad_group"):
+        mesh._hma_grad_group = mesh["dp", "fsdp", "sp"]._flatten("dp_fsdp_sp").get_group()
+    return mesh._hma_grad_group
+
+
 def default_mesh_factors(n: int) -> tuple[int, int, int, int]:
     """`hma_tpu`'s (dp, fsdp, tp, sp) factorisation of n devices (sp 2 from
-    8, then tp 2 from 4, then fsdp 2 from 2); from 8 devices up it asks for
-    sp, which `make_mesh` refuses."""
+    8, then tp 2 from 4, then fsdp 2 from 2)."""
     sp = 2 if n % 8 == 0 and n >= 8 else 1
     rem = n // sp
     tp = 2 if rem % 2 == 0 and rem >= 4 else 1
@@ -188,9 +201,11 @@ def _fsdp_modules(model: nn.Module):
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Shard `model`'s parameters over the mesh, in place (the counterpart
     of `make_param_shardings` and `device_put`): first split over "tp"
-    (`tensor_parallel.split_model`, where tp is above 1), then over "fsdp"
-    with FSDP2 on each tp rank's local tensors (not at all where fsdp is 1
-    and tp above; a mesh of no tp and fsdp 1 is one FSDP2 group a rank):
+    (`tensor_parallel.split_model`, where tp is above 1), the trunk set to
+    run on the rank's tokens where sp is above 1 (`sequence_parallel.
+    enable`), then over "fsdp" with FSDP2 on each tp rank's local tensors
+    (not at all where fsdp is 1 and tp or sp above; a mesh of no tp, no sp
+    and fsdp 1 is one FSDP2 group a rank):
     one `fully_shard` group per STBlock and per diffusion head (`DiffLoss`),
     then the root with the rest. Each parameter is Shard(`shard_dim`); with
     dp above 1 the groups are HSDP over ("dp", "fsdp"). The methods that
@@ -202,12 +217,16 @@ def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     (on the "fsdp" sub-mesh of this rank's tp index)."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
-    from hma_tpu_torch.parallel.tensor_parallel import split_model, tp_of
+    from hma_tpu_torch.parallel import sequence_parallel
+    from hma_tpu_torch.parallel.tensor_parallel import group_of, split_model
 
     if mesh["tp"].size() > 1 and getattr(model, "tp", None) is None:
-        split_model(model, tp_of(tp_group(mesh)))
+        split_model(model, group_of(tp_group(mesh)))
     fsdp = mesh["fsdp"].size()
-    if fsdp == 1 and mesh["tp"].size() > 1:
+    if mesh["sp"].size() > 1 and getattr(model, "sp", None) is None:
+        sequence_parallel.enable(model, group_of(sp_group(mesh)),
+                                 grad_group(mesh) if fsdp == 1 else None)
+    if fsdp == 1 and mesh["tp"].size() * mesh["sp"].size() > 1:
         return model
     parts = getattr(model, "tp_parts", {})
     dims = {id(p): shard_dim(mod, leaf, p, fsdp, parts.get(f"{name}.{leaf}" if name else leaf))

@@ -50,28 +50,28 @@ from torch import nn
 CHUNKS = {"qkv": 3, "ada_fc2": 2}
 
 
-class TP(NamedTuple):
-    """A tensor-parallel group: its process group, this rank's index in it
-    and its size."""
+class Group(NamedTuple):
+    """A tensor- or sequence-parallel group: its process group, this rank's
+    index in it and its size."""
     group: Any
     rank: int
     size: int
 
 
-def tp_of(group) -> Optional[TP]:
-    """The `TP` of a process group; None without one or with one rank."""
+def group_of(group) -> Optional[Group]:
+    """The `Group` of a process group; None without one or with one rank."""
     if group is None or dist.get_world_size(group) == 1:
         return None
-    return TP(group, dist.get_rank(group), dist.get_world_size(group))
+    return Group(group, dist.get_rank(group), dist.get_world_size(group))
 
 
-def _all_reduce(x: torch.Tensor, tp: TP) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, tp: Group) -> torch.Tensor:
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device).copy_(x)
     dist.all_reduce(y, group=tp.group)
     return y.to(x.dtype)
 
 
-def _all_gather(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, tp: Group, dim: int) -> torch.Tensor:
     """The ranks' x joined along `dim`, in rank order (bf16 moves as bytes:
     a copy needs no arithmetic, and gloo has no 16-bit integers)."""
     x = x.contiguous()
@@ -82,7 +82,7 @@ def _all_gather(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
     return torch.cat(out.view(tp.size, *x.shape).unbind(0), dim)
 
 
-def rank_slice(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
+def rank_slice(x: torch.Tensor, tp: Group, dim: int) -> torch.Tensor:
     """This rank's contiguous 1 / tp.size of x along `dim` (a view)."""
     n = x.shape[dim] // tp.size
     return x.narrow(dim, tp.rank * n, n)
@@ -113,7 +113,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
         ctx.tp, ctx.dim = tp, dim
-        return _all_gather(x, tp, dim)
+        return all_gather(x, tp, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -128,25 +128,25 @@ class _Scatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.tp, ctx.dim), None, None
+        return all_gather(g, ctx.tp, ctx.dim), None, None
 
 
-def copy(x: torch.Tensor, tp: Optional[TP]) -> torch.Tensor:
+def copy(x: torch.Tensor, tp: Optional[Group]) -> torch.Tensor:
     """x as it is; its gradient summed over the group."""
     return x if tp is None else _Copy.apply(x, tp)
 
 
-def reduce(x: torch.Tensor, tp: Optional[TP]) -> torch.Tensor:
+def reduce(x: torch.Tensor, tp: Optional[Group]) -> torch.Tensor:
     """x summed over the group (in fp32); the gradient as it is."""
     return x if tp is None else _Reduce.apply(x, tp)
 
 
-def gather(x: torch.Tensor, tp: Optional[TP], dim: int = -1) -> torch.Tensor:
+def gather(x: torch.Tensor, tp: Optional[Group], dim: int = -1) -> torch.Tensor:
     """The ranks' x joined along `dim`; the gradient's slice of this rank."""
     return x if tp is None else _Gather.apply(x, tp, dim % x.ndim)
 
 
-def scatter(x: torch.Tensor, tp: Optional[TP], dim: int = -1) -> torch.Tensor:
+def scatter(x: torch.Tensor, tp: Optional[Group], dim: int = -1) -> torch.Tensor:
     """This rank's contiguous slice of x along `dim`; the gradient joined."""
     return x if tp is None else _Scatter.apply(x, tp, dim % x.ndim)
 
@@ -180,10 +180,10 @@ def take(whole: torch.Tensor, part: Part, rank: int, world: int) -> torch.Tensor
     return whole.index_select(part.dim, idx).contiguous()
 
 
-def gather_whole(local: torch.Tensor, part: Part, tp: TP) -> torch.Tensor:
+def gather_whole(local: torch.Tensor, part: Part, tp: Group) -> torch.Tensor:
     """The whole tensor from every rank's part (a collective over the
     group), in the parameter's own column order."""
-    joined = _all_gather(local, tp, part.dim)
+    joined = all_gather(local, tp, part.dim)
     idx = torch.cat([part_index(joined.shape[part.dim], part.chunks, r, tp.size,
                                 joined.device) for r in range(tp.size)])
     whole = torch.empty_like(joined)
@@ -200,7 +200,7 @@ def _jax_leaf(mod: nn.Module, leaf: str, p: torch.Tensor) -> tuple[str, tuple]:
     return leaf, tuple(p.shape)
 
 
-def split_params(model: nn.Module, tp: TP) -> dict:
+def split_params(model: nn.Module, tp: Group) -> dict:
     """{name: Part} of the parameters `mesh.tp_dim` splits at tp.size, each
     replaced in place by this rank's part (dealt by `part_index`). The
     module names are `hma_tpu`'s (the converter maps them one to one)."""
@@ -225,7 +225,7 @@ def split_params(model: nn.Module, tp: TP) -> dict:
     return parts
 
 
-def split_model(model: nn.Module, tp: Optional[TP]) -> nn.Module:
+def split_model(model: nn.Module, tp: Optional[Group]) -> nn.Module:
     """Split `model`'s whole weights over the tp group, in place (see the
     module docstring), and set each module's tp mode. Returns `model`,
     with `model.tp` (the group) and `model.tp_parts` ({name: Part}); with

@@ -64,7 +64,17 @@ replicated one once; the optimizer updates the rank's parts, and a
 low-precision moment's random bits are the rank's part of the draw at the
 parameter's whole shape, taken through the same dealt columns
 (`tensor_parallel.take`), then its fsdp shard's.
-Sliced gradients under fsdp or tp are ROADMAP.md Queue A item 10e and raise.
+sp (a model whose trunk runs on the rank's tokens,
+`parallel.sequence_parallel.enable`, `model.sp`): parameters are whole and
+equal on the ranks of an sp group, so the bf16 moments' bits are too. Each
+rank's loss counts 1 / sp in the backward (the metrics are the whole
+loss), and after it every gradient is summed once over `model.sp_grads`:
+the data and sp ranks together where FSDP2 does not shard the model, the
+sp group on the shards after FSDP2's reduce-scatter where it does. That
+gives one process's gradient; the clip's norm is taken after the sum
+(`sequence_parallel`'s convention).
+Sliced gradients under fsdp, tp or sp are ROADMAP.md Queue A item 10e and
+raise.
 """
 
 from __future__ import annotations
@@ -98,7 +108,7 @@ from hma_tpu_torch.train.lowp import (
 )
 
 Schedule = Callable[[int], float]
-SLICED_FSDP = ("sliced gradients under fsdp or tp are not ported yet (ROADMAP.md "
+SLICED_FSDP = ("sliced gradients under fsdp, tp or sp are not ported yet (ROADMAP.md "
                "Queue A item 10e): the one-row swap would replace parameters that FSDP2 "
                "or the tp split owns; use --sliced_grads off or auto")
 
@@ -534,15 +544,19 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
     module docstring); batch is then this rank's rows of the global batch.
     On a model sharded by `parallel.mesh.shard_model` FSDP2 has summed the
     gradients over the group; sliced gradients then raise (item 10e), as
-    they do on a tp-split model.
+    they do on a tp-split model and under sp. Under sp (`model.sp`) the
+    backward takes 1 / sp of the loss and the gradients are summed over
+    `model.sp_grads` (see the module docstring).
     `noise` (a call's keyword): the low-precision moments' bits, as
     `AdamW.step` takes them.
     """
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
     sharded = isinstance(next(iter(params.values())), DTensor)
+    sp = getattr(model, "sp", None)
     stacked = []
-    if stacked_mask is not None and (sharded or getattr(model, "tp", None) is not None):
+    if stacked_mask is not None and (sharded or sp is not None
+                                     or getattr(model, "tp", None) is not None):
         raise NotImplementedError(SLICED_FSDP)
     if stacked_mask is not None:
         if not isinstance(tx, DomainSlicedAdamW):
@@ -556,8 +570,9 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
         gen, dropout = generators(rng, part, device, group)
         draws = dict(draws or {})
         dropout = draws.pop("dropout", dropout)
-        return _loss(model, chunk, continuous, action_loss_weight, gen, dropout, draws,
-                     group)
+        loss, metrics = _loss(model, chunk, continuous, action_loss_weight, gen, dropout,
+                              draws, group)
+        return (loss if sp is None else loss * (1.0 / sp.size)), metrics
 
     def backward(batch: dict, rng: int, draws: Optional[dict], leaves: dict) -> dict:
         """Grads into `leaves`' .grad (averaged over the chunks); metrics."""
@@ -594,9 +609,11 @@ def make_train_step(model: nn.Module, tx: AdamW, *, microbatch: int = 0,
             metrics = backward(batch, rng, draws, leaves)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in leaves.items()}
+        if sp is not None:  # one process's gradients (`sequence_parallel`)
+            all_reduce_sum_([local(g) for g in grads.values()], model.sp_grads)
+        elif group is not None and not sharded:  # FSDP2 has summed sharded ones
+            all_reduce_sum_(list(grads.values()), group)
         if group is not None:
-            if not sharded:  # FSDP2's reduce-scatter has summed sharded ones
-                all_reduce_sum_(list(grads.values()), group)
             metrics = _sum_metrics(metrics, group)
         ok_loss = torch.isfinite(metrics["loss"])
         with torch.no_grad():  # the bits only where handed in

@@ -24,8 +24,8 @@ rounding; checkpoints hold them in bf16. `--lr_scheduler_type` other than
 
 Sliced gradients (`--sliced_grads`, `train/step.py`): "auto" turns them on
 when the domain-sliced AdamW is active and the world is one process, as
-`hma_tpu` does with no mesh; "on" and "off" force them ("on" under fsdp or
-tp raises: ROADMAP.md Queue A item 10e).
+`hma_tpu` does with no mesh; "on" and "off" force them ("on" under fsdp,
+tp or sp raises: ROADMAP.md Queue A item 10e).
 
 Data parallelism over the mesh's data axes "dp" and "fsdp" (`parallel/`):
 launched with torchrun (or `hma_tpu`'s HMA_TPU_* variables), one process a
@@ -38,14 +38,15 @@ batch's random draws, and the gradients are summed over the data axes
 (the loss is the global batch's mean), so that N ranks train as one process
 on the global batch. Under "dp" alone parameters and moments are
 replicated and the step sums the gradients. With `--tp` above 1 the
-model's heads and MLP features are split over the tp ranks (they share
-their rows and draws), and with `--fsdp` above 1 it is sharded by FSDP2 on
-each tp rank's parts (`parallel.mesh.shard_model`, after rank 0's initial
-weights or the resumed checkpoint are in place); the optimizer updates
-each rank's parts, and a checkpoint gathers them whole first. Rank 0 logs
-and writes the checkpoints, every rank reads them. Not ported (they raise):
-sp above 1 (ROADMAP.md Queue A item 10c), the native loader with more than
-one process, as in `hma_tpu`, and wandb.
+model's heads and MLP features are split over the tp ranks, with `--sp`
+above 1 its trunk runs on the sp ranks' tokens of every frame (the ranks of
+a tp or sp group share their rows and draws), and with `--fsdp` above 1 it
+is sharded by FSDP2 on each tp rank's parts (`parallel.mesh.shard_model`,
+after rank 0's initial weights or the resumed checkpoint are in place); the
+optimizer updates each rank's parts, and a checkpoint gathers them whole
+first (sp holds whole parameters). Rank 0 logs and writes the checkpoints,
+every rank reads them. Not ported (they raise): the native loader with more
+than one process, as in `hma_tpu`, and wandb.
 """
 
 from __future__ import annotations
@@ -157,9 +158,8 @@ def _refuse_unported(args: TrainArgs) -> None:
     if args.model_type not in ("discrete", "continuous"):
         raise ValueError(f"--model_type {args.model_type}")
     unported = {
-        "--sp above 1 (item 10c (sp))": args.sp > 1,
-        "--sliced_grads on with --fsdp or --tp above 1 (item 10e)": (
-            args.sliced_grads == "on" and max(args.fsdp, args.tp) > 1),
+        "--sliced_grads on with --fsdp, --tp or --sp above 1 (item 10e)": (
+            args.sliced_grads == "on" and max(args.fsdp, args.tp, args.sp) > 1),
         "--report_to wandb": args.report_to == "wandb",
     }
     asked = [k for k, v in unported.items() if v]
@@ -367,7 +367,7 @@ def run_training(args: TrainArgs) -> dict:
     multi = distributed.init_distributed(device=args.device)
     world = distributed.process_count()
     check_factors(args.dp, args.fsdp, args.tp, args.sp, world)
-    mesh = make_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp) if multi else None
+    mesh = make_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp) if multi else None
     group = distributed.data_group()  # None with one data index
     if args.use_native_loader and world > 1:
         raise ValueError("--use_native_loader is one process only: data-parallel "
@@ -431,7 +431,7 @@ def run_training(args: TrainArgs) -> dict:
     smask = None
     if args.domain_sliced_adam and config.num_domains > 1:
         smask = stacked_param_mask(model, config)
-    if max(args.fsdp, args.tp) > 1:  # the whole weights are in place: split, shard
+    if max(args.fsdp, args.tp, args.sp) > 1:  # the whole weights are in place: split, shard
         shard_model(model, mesh)
     if smask is not None:
         tx = make_domain_sliced_optimizer(model, **opt_kw, stacked_mask=smask,

@@ -16,13 +16,14 @@ process). Data-parallel on several cards with torchrun, one process a card:
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --fsdp 8
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --dp 2 --fsdp 4
     torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --fsdp 4 --tp 2
+    torchrun --nproc_per_node 8 -m hma_tpu_torch.train_multi ... --fsdp 2 --tp 2 --sp 2
 
 (`--per_device_train_batch_size` is each card's share; `--fsdp` shards the
 parameters and moments with FSDP2, as HSDP with `--dp` above 1 too; `--tp`
-splits attention heads and MLP features over tensor-parallel ranks; add
-`--device cpu` for gloo processes on the CPU). Flags for what it does not
-port yet (`--sp` above 1, `--sliced_grads on` with `--fsdp` or `--tp`,
-wandb) raise.
+splits attention heads and MLP features over tensor-parallel ranks, `--sp`
+every frame's tokens over sequence-parallel ranks; add `--device cpu` for
+gloo processes on the CPU). Flags for what it does not port yet
+(`--sliced_grads on` with `--fsdp`, `--tp` or `--sp`, wandb) raise.
 """
 
 from __future__ import annotations

@@ -509,17 +509,17 @@ def test_collate_rows_are_the_whole_batch():
 
 
 def test_what_cannot_run_raises(monkeypatch, tmp_path):
-    # sp waits for ROADMAP A10c (sp), with fsdp or tp beside it too; tp alone
-    # runs (tests/test_torch_tp.py)
-    for kw in ({"fsdp": 2, "sp": 2}, {"tp": 2, "sp": 2}, {"sp": 2}):
-        with pytest.raises(NotImplementedError, match=r"item 10c \(sp\)"):
-            port_mesh.check_factors(**kw, world=2)
+    # tp and sp run (tests/test_torch_tp.py, tests/test_torch_sp.py), beside
+    # fsdp and each other too; dp is the rest of the world
     assert port_mesh.check_factors(tp=2, world=2) == 1
+    assert port_mesh.check_factors(sp=2, world=2) == 1
+    assert port_mesh.check_factors(fsdp=2, sp=2, world=4) == 1
+    assert port_mesh.check_factors(tp=2, sp=2, world=8) == 2
     # factors the world cannot fill, more or fewer: no subset mesh
     for dp in (1, 4):
         with pytest.raises(ValueError, match="world has 2"):
             port_mesh.check_factors(dp, world=2)
-    for kw in ({"fsdp": 2}, {"dp": 2, "fsdp": 2}):  # one process: no group to shard over
+    for kw in ({"fsdp": 2}, {"dp": 2, "fsdp": 2}, {"sp": 2}):  # one process: no group to split over
         with pytest.raises(ValueError, match="world has 1"):
             port_mesh.check_factors(**kw, world=1)
     with pytest.raises(ValueError, match="world has 1"):

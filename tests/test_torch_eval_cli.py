@@ -308,16 +308,21 @@ def test_use_feature_forwards_every_flag(monkeypatch):
         ("a", 3, 5, 0.5, 7, 2, 9, "autoregressive", True, "cpu", 2.0, True)
 
 
+# --sp runs (tests/test_torch_sp.py); in one process it asks for processes
+# that are not there. Those two cases keep the ids they had while --sp was
+# refused as item 10c.
 @pytest.mark.parametrize("cli,extra,error,match", [
     ("evaluate", ["--tokenizer_ckpt", "{tmp}"], FileNotFoundError, "no tokenizer checkpoint"),
     ("evaluate", ["--raw_image_data"], ValueError, "requires --tokenizer_ckpt"),
     ("evaluate", ["--use_wandb"], NotImplementedError, "item 11"),
-    ("evaluate", ["--sp", "2"], NotImplementedError, "item 10c"),
+    pytest.param("evaluate", ["--sp", "2"], ValueError, "world has 1",
+                 id="evaluate-extra3-NotImplementedError-item 10c"),
     ("evaluate", ["--cfg", "2.0"], ValueError, "unknown arguments"),
     ("evaluate_feature", ["--vae_checkpoint", "{tmp}/v.pt"], FileNotFoundError, "v.pt"),
     ("evaluate_feature", ["--i3d_weights", "{tmp}/i.pt"], FileNotFoundError, "i.pt"),
     ("evaluate_feature", ["--use_wandb"], NotImplementedError, "item 11"),
-    ("evaluate_feature", ["--sp", "2"], NotImplementedError, "item 10c")])
+    pytest.param("evaluate_feature", ["--sp", "2"], ValueError, "world has 1",
+                 id="evaluate_feature-extra8-NotImplementedError-item 10c")])
 def test_unsupported_flags_raise(tmp_path, cli, extra, error, match):
     main = evaluate_main if cli == "evaluate" else evaluate_feature_main
     with pytest.raises(error, match=match):

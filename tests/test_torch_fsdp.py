@@ -114,10 +114,10 @@ def _jax_card(continuous: bool) -> dict:
 
 
 def _jax_case(continuous: bool, bf16: bool, dp: int = 1, fsdp: int = 2, tp: int = 1,
-              card: dict = None) -> tuple:
-    """hma_tpu's train step on a (dp, fsdp, tp) mesh (parameters placed by
+              card: dict = None, sp: int = 1, steps: int = 2) -> tuple:
+    """hma_tpu's train step on a (dp, fsdp, tp, sp) mesh (parameters placed by
     make_param_shardings, the optimizer initialised under jit so its moments
-    inherit them, as hma_tpu's trainer does), 2 steps (domains 1, 2) of the
+    inherit them, as hma_tpu's trainer does), `steps` steps (domains 1, 2) of the
     domain-sliced AdamW on `card` (default `_jax_card`'s, with 3 domains):
     (what the ranks need, what they must end with, the placements hma_tpu
     gives: {port name: (fsdp dim, shard shape, size, tp dim)}, the dims and
@@ -130,7 +130,8 @@ def _jax_case(continuous: bool, bf16: bool, dp: int = 1, fsdp: int = 2, tp: int 
     jm = jm_cls(jcfg, dtype=jnp.float32)
     # bf16: one step, as a bf16 step apart in one step's moments moves the
     # next step's parameters and so all its gradients
-    batches = [_case_batch(continuous, card, 10 + i, d) for i, d in enumerate((1, 2)[:2 - bf16])]
+    batches = [_case_batch(continuous, card, 10 + i, d)
+               for i, d in enumerate((1, 2)[:1 if bf16 else steps])]
     keys = {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1),
             "action_drop": jax.random.PRNGKey(2)}
     b0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
@@ -148,7 +149,7 @@ def _jax_case(continuous: bool, bf16: bool, dp: int = 1, fsdp: int = 2, tp: int 
         stacked_mask=mask, num_domains=3, moment_dtype=jnp.bfloat16 if bf16 else None)
     step = jax_step.make_train_step(jm, tx, continuous=continuous,
                                     action_loss_weight=jcfg.action_loss_weight)
-    mesh = jax_mesh.make_mesh(dp * fsdp * tp, dp=dp, fsdp=fsdp, tp=tp)
+    mesh = jax_mesh.make_mesh(dp * fsdp * tp * sp, dp=dp, fsdp=fsdp, tp=tp, sp=sp)
     shardings = jax_mesh.make_param_shardings(params, mesh)
     put, rep = jax_mesh.batch_sharding(mesh), NamedSharding(mesh, PartitionSpec())
     cfg = (DiffusionGenieConfig if continuous else GenieConfig)(**card)
@@ -168,7 +169,7 @@ def _jax_case(continuous: bool, bf16: bool, dp: int = 1, fsdp: int = 2, tp: int 
             return state, metrics, rec.tree(), list(sink)
 
         p = jax.device_put(params, shardings)
-        opt = jax.tree.map(lambda x: x if len(x.sharding.device_set) == dp * fsdp * tp
+        opt = jax.tree.map(lambda x: x if len(x.sharding.device_set) == dp * fsdp * tp * sp
                            else jax.device_put(x, rep), jax.jit(tx.init)(p))
         state = jax_step.TrainState(p, opt, jax.device_put(jnp.asarray(0), rep))
         losses, draws, noise = [], [], []

@@ -449,7 +449,7 @@ def test_split_parts_and_whole_shape_rules():
     parts = []
     for r in range(2):
         model = port_model(STMaskGIT, card, seed=21)
-        tpar.split_model(model, tpar.TP(None, r, 2))
+        tpar.split_model(model, tpar.Group(None, r, 2))
         assert mup_matrix_mask(model, base) == mup_matrix_mask(whole, base)
         parts.append(model)
     split = parts[0].tp_parts

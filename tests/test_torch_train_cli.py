@@ -199,9 +199,9 @@ def test_nan_streak_aborts_and_unported_flags_raise(synth_env, monkeypatch):
     state = torch.load(out / "final_checkpt" / "train_state.pt", weights_only=True)
     assert state["step"] == 3
     assert all(m.dtype == torch.bfloat16 for m in state["opt_state"]["m"].values())
-    # tp runs (tests/test_torch_tp.py); sp and sliced gradients under fsdp or
-    # tp wait for ROADMAP A10c (sp) and A10e
-    for flag, item in ((["--sp", "2"], "item 10c"),
+    # tp and sp run (tests/test_torch_tp.py, tests/test_torch_sp.py); sliced
+    # gradients under fsdp, tp or sp wait for ROADMAP A10e
+    for flag, item in ((["--sliced_grads", "on", "--sp", "2"], "item 10e"),
                        (["--sliced_grads", "on", "--tp", "2"], "item 10e"),
                        (["--sliced_grads", "on", "--fsdp", "2"], "item 10e")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

@@ -1,14 +1,15 @@
-"""Rank process of tests/test_torch_data_parallel.py, tests/test_torch_fsdp.py
-and tests/test_torch_tp.py (not a test module).
+"""Rank process of tests/test_torch_data_parallel.py, tests/test_torch_fsdp.py,
+tests/test_torch_tp.py and tests/test_torch_sp.py (not a test module).
 
 Launched twice with torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK,
-MASTER_ADDR, MASTER_PORT) as `torch_dp_rank.py ROOT [FSDP [TP]]`: each
+MASTER_ADDR, MASTER_PORT) as `torch_dp_rank.py ROOT [FSDP [TP [SP]]]`: each
 process joins the gloo group through
 `hma_tpu_torch.parallel.distributed.init_distributed(device="cpu")`, makes
-the (dp, fsdp, tp) mesh with fsdp FSDP and tp TP (default 1 each: data
-parallelism alone; the flags in ROOT's argv files say the same; dp is the
-rest of the world), then (all but 3 with `--steps_only`, launched as any
-number of processes)
+the (dp, fsdp, tp, sp) mesh with fsdp FSDP, tp TP and sp SP (default 1
+each: data parallelism alone; the flags in ROOT's argv files say the same;
+dp is the rest of the world), then (all but 3 with `--steps_only`, launched
+as any number of processes; `--also ROOT2 FSDP2 TP2 SP2` then takes ROOT2's
+step cases on a second mesh)
 
   1. runs `train_multi` for 3 steps from the test's initial weights, then
      again resumed from its step-2 checkpoint, recording every step's
@@ -19,12 +20,12 @@ number of processes)
      default both families with hma_tpu's draws handed in, the discrete
      case with sliced gradients, once the test has written them, and both
      families drawing their own dropout, action drops and diffusion noise),
-     on a model sharded by FSDP2 under fsdp and split under tp, and saves
-     its parameters and moments (gathered whole) and, sharded or split,
-     each parameter's placement;
+     on a model sharded by FSDP2 under fsdp, split under tp and on the
+     rank's tokens under sp, and saves its parameters and moments (gathered
+     whole) and, sharded or split, each parameter's placement;
   4. with `rollouts.pt` in ROOT, runs the cached rollouts it names (the
      discrete greedy one and the MAR one with handed-in draws) on the model
-     split over tp, and saves their outputs;
+     placed on the mesh, and saves their outputs and the caches' shapes;
 
 and saves what the test compares. It imports no JAX.
 """
@@ -71,20 +72,24 @@ def train_case(spec: dict, group=None, mesh=None) -> dict:
     `spec["draws"]` and the moments' bits `spec["noise"]` handed in where
     there are some, grad accumulation over microbatches of
     `spec["microbatch"]` global rows where it is set (a rank takes its rows
-    of each). With a `mesh` whose fsdp or tp is above 1 the model is split
-    over tp and sharded by FSDP2 (`shard_model`). Returns the parameters and
+    of each), the temporal layout `spec["temporal_layout"]` (default
+    "transpose"). With a `mesh` whose fsdp, tp or sp is above 1 the model is
+    split over tp, set on the rank's tokens under sp and sharded by FSDP2
+    (`shard_model`). Returns the parameters and
     moments (whole), the counts, every step's metrics and, sharded or
     split, {name: (fsdp shard dim or None, local shape, tp split dim or
     None)}."""
     continuous = spec["continuous"]
     cls, cfg_cls = (STMAR, DiffusionGenieConfig) if continuous else (STMaskGIT, GenieConfig)
     cfg = cfg_cls(**spec["card"])
-    model = cls(cfg, dtype=torch.float32, device="cpu")
+    model = cls(cfg, dtype=torch.float32, device="cpu",
+                temporal_layout=spec.get("temporal_layout", "transpose"))
     model.load_state_dict(spec["state"])
     more = cfg_cls(**spec["card_more"])
     stacked = port_step.domain_stacked_mask(model, cls(more, dtype=torch.float32,
                                                        device="meta"))
-    sharded = mesh is not None and mesh["fsdp"].size() * mesh["tp"].size() > 1
+    sharded = (mesh is not None
+               and mesh["fsdp"].size() * mesh["tp"].size() * mesh["sp"].size() > 1)
     split = {}
     if sharded:
         shard_model(model, mesh)
@@ -196,9 +201,19 @@ def run_train_multi(root: Path) -> None:
         {"straight": straight, "resumed": resumed, "from_one": seen, "writers": writers}))
 
 
+def window(model, case) -> torch.Tensor:
+    """`window_logits` of frames 2 and 3 of the discrete rollout case's
+    tokens over caches filled with frames 0 and 1 by `frame_logits`."""
+    k, v = model.init_cache(case["tokens"].shape[0])
+    for t in range(2):
+        _, k, v = model.frame_logits(case["tokens"][:, t], t, k, v, case["actions"])
+    return model.window_logits(case["tokens"][:, 2:], 2, k, v, case["actions"])[0]
+
+
 def run_rollouts(root: Path, mesh) -> None:
     """The rollouts of `rollouts.pt` on the model split over the mesh: the
-    discrete greedy rollout and the MAR one with handed-in draws."""
+    discrete greedy rollout (and `window`'s logits) and the MAR one with
+    handed-in draws."""
     spec = torch.load(root / "rollouts.pt", weights_only=False)
     out = {}
     for name, case in spec.items():
@@ -215,7 +230,9 @@ def run_rollouts(root: Path, mesh) -> None:
             else:
                 out[name] = generate_tokens(model, case["tokens"], 2, case["actions"], 0,
                                             g, maskgit_steps=2, temperature=0.0)
+                out["window"] = window(model, case)
         out[f"{name}_heads"] = model.init_cache(1)[0].shape[-2]
+        out[f"{name}_sites"] = model.init_cache(1)[0].shape[1]
     torch.save(out, root / f"rollouts_rank{dist.process_index()}.pt")
 
 
@@ -223,6 +240,7 @@ def main():
     root = Path(sys.argv[1])
     fsdp = int(sys.argv[2]) if len(sys.argv) > 2 else 1
     tp = int(sys.argv[3]) if len(sys.argv) > 3 and sys.argv[3].isdigit() else 1
+    sp = int(sys.argv[4]) if len(sys.argv) > 4 and sys.argv[4].isdigit() else 1
     assert dist.init_distributed(device="cpu")
     out = {}
     if "--steps_only" not in sys.argv:  # else only the step cases, any world
@@ -231,7 +249,7 @@ def main():
         out = {"evaluate": evaluate_main(json.loads((root / "eval_argv.json").read_text())),
                "evaluate_feature": evaluate_feature_main(
                    json.loads((root / "feature_argv.json").read_text()))}
-    mesh = make_mesh(fsdp=fsdp, tp=tp)
+    mesh = make_mesh(fsdp=fsdp, tp=tp, sp=sp)
     if (root / "rollouts.pt").exists():
         run_rollouts(root, mesh)
     cases = root / "cases.json"
@@ -239,12 +257,17 @@ def main():
              ("discrete_drawn", "continuous_drawn", "discrete", "continuous"))
     for case in cases:
         run_case(root, case, dist.data_group(), mesh)
-    if fsdp * tp > 1:  # sliced gradients on a sharded model raise (ROADMAP item 10e)
+    if fsdp * tp * sp > 1:  # sliced gradients on a sharded model raise (ROADMAP item 10e)
         spec = torch.load(root / f"{cases[0]}_case.pt", weights_only=False)
         try:
             train_case({**spec, "sliced": True}, dist.data_group(), mesh)
         except NotImplementedError as e:
             out["sliced_refused"] = str(e)
+    if "--also" in sys.argv:  # a second mesh's step cases, from ROOT2
+        root2, *factors = sys.argv[sys.argv.index("--also") + 1:][:4]
+        mesh2 = make_mesh(**dict(zip(("fsdp", "tp", "sp"), map(int, factors))))
+        for case in json.loads((Path(root2) / "cases.json").read_text()):
+            run_case(Path(root2), case, dist.data_group(), mesh2)
     out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hma_tpu"))
     (root / f"eval_rank{dist.process_index()}.json").write_text(json.dumps(out))
     torch.distributed.barrier()
